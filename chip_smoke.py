@@ -1,0 +1,560 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch/CUDA port (foundpose_torch) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py              # one GPU
+
+Phases (each prints one line and raises on failure):
+  0  card: name, power limit, device count; TF32 switched off.
+  1  build: compiles csrc/*.cu with nvcc (sm_90a) into foundpose_torch/_build.
+  2  kernels vs their plain PyTorch twins at the main path's shapes (bf16):
+     the ViT block per layer (whole output and the residual branches alone)
+     and over all layers, the buddies cycle distances, the RANSAC scorer;
+     errors against stated tolerances and CUDA-event times of kernel and twin.
+  3  main path: DINOv2 ViT-S/14-reg (calibrated random weights), an LM-O
+     scale synthetic representation and configs/infer/lmo.json, serving
+     batches of 420 px crops through pipeline.inference.pose_from_crops until
+     the latency settles, then 30 timed requests; latency quartiles, crops/s,
+     a per-stage split, peak memory, proof that all three kernels launched,
+     and torch.profiler over one request (device busy share, top kernels).
+  4  pose correctness on a structured world with known poses: the card
+     (kernels) against the CPU (twins), and the card against ground truth.
+
+The second-to-last line of stdout is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
+prints no result. Details go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LMO_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo.json")
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# Tolerances of the kernel-vs-twin comparisons (bf16 on the card).
+BLOCK_REL_L2 = 1e-2  # per layer, relative L2 of the block output
+# Per layer, relative L2 of the residual branches alone (out - x): the
+# unchanged x dominates the output's norm at layer scale 0.1 and would hide
+# a wrong attention or MLP branch.
+BRANCH_REL_L2 = 1e-2
+FMAP_COS_MEDIAN, FMAP_COS_MIN = 0.999, 0.99  # per-token cosine after all layers
+BUDDIES_Q2O_AGREE = 0.99  # share of valid queries with equal q2o
+BUDDIES_CD_ATOL = 1e-4
+SCORE_AGREE = 0.995  # share of hypotheses with equal counts
+SCORE_MAX_DIFF = 1.0
+
+# Phase 3 serves windows of WARM_WINDOW requests until two window medians in
+# a row agree within WARM_SETTLE (the first requests of a process run slower),
+# then times TIMED_REQUESTS requests.
+WARM_WINDOW, WARM_SETTLE, WARM_MAX_WINDOWS = 5, 0.05, 12
+TIMED_REQUESTS = 30
+
+KERNEL_SOURCES = {
+    "vit_block": ("foundpose_torch/csrc/vit_block.cu", "foundpose_tpu/ops/vit_block.py:126"),
+    "buddies": ("foundpose_torch/csrc/buddies.cu", "foundpose_tpu/ops/buddies_kernel.py:46"),
+    "ransac_score": ("foundpose_torch/csrc/score.cu", "foundpose_tpu/pose/pnp.py:35"),
+}
+
+
+def log(phase, msg):
+    print(f"[phase {phase}] {msg}", flush=True)
+
+
+def cuda_ms(torch, fn, reps=20, warm=3):
+    """Mean milliseconds per call of `fn` by CUDA events, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    info = {
+        "nvidia_smi": smi,
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "python": sys.version.split()[0],
+    }
+    log(0, f"card {info['kind']!r} x{info['count']} | nvidia-smi: {smi} | torch "
+           f"{info['torch']} cuda {info['cuda']} | TF32 off (matmul and cuDNN)")
+    return info
+
+
+def phase_build():
+    from foundpose_torch import _kernels
+
+    _kernels.library()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "build_log.txt"), "w") as f:
+        f.write(_kernels.build_log)
+    usage = [ln.strip() for ln in _kernels.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(1, f"built in {_kernels.build_seconds:.2f} s; ptxas: " + " | ".join(usage[:12]))
+    return {"build_seconds": _kernels.build_seconds, "ptxas": usage}
+
+
+def bench_mask(torch, gen, batch, device):
+    """The bench's crop masks: a 260 px box at 80..340 with 60% density."""
+    inner = (torch.rand(batch, 260, 260, generator=gen, device=device) > 0.4).float()
+    masks = torch.zeros(batch, 420, 420, device=device)
+    masks[:, 80:340, 80:340] = inner
+    return masks
+
+
+def phase_kernels(torch, model, vit_cfg, repre, config, device):
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.ops import sampling
+    from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
+    from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain, layer_norm
+    from foundpose_torch.pipeline.inference import preprocess_crops
+    from foundpose_torch.pose import pnp
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    b = 16
+    result = {}
+    bf16 = torch.bfloat16
+
+    # --- ViT block: real activations of random crops through all layers.
+    crops = torch.rand(b, 420, 420, 3, generator=gen, device=device)
+    x0, (gh, gw) = dinov2.embed_tokens(model, preprocess_crops(crops, config))
+    kw = dict(seq_len=x0.shape[1], num_heads=vit_cfg.num_heads, head_dim=vit_cfg.head_dim,
+              eps=vit_cfg.layer_norm_eps, approx_gelu=vit_cfg.approx_gelu)
+    def rel_l2(got, ref):
+        return float(torch.linalg.vector_norm((got - ref).float())
+                     / torch.linalg.vector_norm(ref.float()))
+
+    xk, xp, rel, branch = x0, x0, [], []
+    for blk in list(model.blocks)[: vit_cfg.layer + 1]:
+        p = blk.kernel_params(bf16)
+        yk = fused_vit_block(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        ytwin = fused_vit_block_plain(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        rel.append(rel_l2(yk, ytwin))
+        branch.append(rel_l2(yk.float() - xk.float(), ytwin.float() - xk.float()))
+        xp = fused_vit_block_plain(xp, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        if len(rel) == 1:
+            block_err = float((yk.float() - ytwin.float()).abs().max())
+        xk = yk
+
+    def fmap(x):
+        toks = torch.cat([x[:, :1], x[:, 1 + vit_cfg.num_register_tokens:]], dim=1)
+        toks = layer_norm(toks, model.norm.weight.to(bf16), model.norm.bias.to(bf16),
+                          vit_cfg.layer_norm_eps)
+        return toks[:, 1:].float()
+
+    cos = torch.nn.functional.cosine_similarity(fmap(xk), fmap(xp), dim=-1).flatten()
+    cos_med, cos_min = float(cos.median()), float(cos.min())
+    p0 = model.blocks[0].kernel_params(bf16)
+    col_k = fused_vit_block(x0, p0, softmax_stabilizer="column", **kw)
+    col_p = fused_vit_block_plain(x0, p0, softmax_stabilizer="column", **kw)
+    col_rel = rel_l2(col_k, col_p)
+    col_branch = rel_l2(col_k.float() - x0.float(), col_p.float() - x0.float())
+    ms_k = cuda_ms(torch, lambda: fused_vit_block(x0, p0, softmax_stabilizer="capped", **kw))
+    ms_p = cuda_ms(torch, lambda: fused_vit_block_plain(x0, p0, softmax_stabilizer="capped", **kw))
+    result["vit_block"] = dict(
+        shape=list(x0.shape), rel_l2_per_layer=rel, branch_rel_l2_per_layer=branch,
+        column_rel_l2=col_rel, column_branch_rel_l2=col_branch,
+        fmap_cos_median=cos_med, fmap_cos_min=cos_min, max_abs_err=block_err,
+        ms=ms_k, plain_ms=ms_p,
+    )
+    log(2, f"vit_block x{list(x0.shape)} bf16: rel L2/layer max {max(rel):.2e} (tol "
+           f"{BLOCK_REL_L2}), branches (out - x) max {max(branch):.2e} (tol {BRANCH_REL_L2}), "
+           f"column {col_rel:.2e} / branches {col_branch:.2e}, fmap cos median {cos_med:.6f} "
+           f"min {cos_min:.6f} (tol {FMAP_COS_MEDIAN}/{FMAP_COS_MIN}); kernel {ms_k:.3f} ms "
+           f"vs twin {ms_p:.3f} ms per layer")
+    check(max(rel) <= BLOCK_REL_L2 and col_rel <= BLOCK_REL_L2, f"block rel L2 {rel} {col_rel}")
+    check(max(branch) <= BRANCH_REL_L2 and col_branch <= BRANCH_REL_L2,
+          f"block branch rel L2 {branch} {col_branch}")
+    check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN, f"fmap cosine {cos_med} {cos_min}")
+
+    # --- Buddies: queries drawn from a retrieved template's bank plus noise.
+    tn, q = config.top_n_templates, 900
+    tids = torch.randint(0, repre.num_templates, (b, tn), generator=gen, device=device)
+    sel_feats = repre.bank_feats[tids].to(bf16).contiguous()
+    sel_mask = repre.bank_mask[tids]
+    f = sel_feats.shape[2]
+    rows = torch.randint(0, f, (b, q), generator=gen, device=device)
+    qf = sel_feats[:, 0].float().gather(1, rows[..., None].expand(b, q, sel_feats.shape[3]))
+    qf = (qf + 0.3 * torch.randn(qf.shape, generator=gen, device=device)).to(bf16)
+    grid = sampling.grid_points(config.crop_size, config.grid_cell_size, device=device)
+    qmask = sampling.points_in_mask(grid, bench_mask(torch, gen, b, device))
+    cd_k, q2o_k = cycle_distances(qf, qmask, grid, sel_feats, sel_mask)
+    cd_p, q2o_p = cycle_distances_plain(qf, qmask, grid, sel_feats, sel_mask)
+    valid = qmask[:, None, :].expand_as(cd_k)
+    same = (q2o_k == q2o_p) & valid
+    q2o_agree = float(same.sum() / valid.sum())
+    dcd = (cd_k - cd_p).abs()
+    cd_agree = float(((dcd <= BUDDIES_CD_ATOL) & same).sum() / same.sum())
+    masked_ok = bool((cd_k[~valid] == cd_p[~valid]).all())
+    ms_k = cuda_ms(torch, lambda: cycle_distances(qf, qmask, grid, sel_feats, sel_mask))
+    ms_p = cuda_ms(torch, lambda: cycle_distances_plain(qf, qmask, grid, sel_feats, sel_mask))
+    result["buddies"] = dict(
+        shape=[list(qf.shape), list(sel_feats.shape)], valid_queries=int(qmask.sum()),
+        q2o_agree=q2o_agree, cd_agree_where_q2o_agrees=cd_agree,
+        max_abs_err=float(dcd[same].max()), ms=ms_k, plain_ms=ms_p,
+    )
+    log(2, f"buddies {list(qf.shape)} x {list(sel_feats.shape)}: {int(qmask.sum())} valid "
+           f"queries, q2o agree {q2o_agree:.5f} (tol {BUDDIES_Q2O_AGREE}), cd within "
+           f"{BUDDIES_CD_ATOL} where q2o agrees {cd_agree:.5f}; kernel {ms_k:.3f} ms vs "
+           f"twin {ms_p:.3f} ms")
+    check(q2o_agree >= BUDDIES_Q2O_AGREE and cd_agree >= BUDDIES_Q2O_AGREE and masked_ok,
+          "buddies kernel disagrees with its twin")
+
+    # --- RANSAC scorer: 80 sets x 300 points x 200 hypotheses near the truth.
+    s, n, h = b * tn, config.top_k_buddies, config.pnp_ransac_iter
+    rng = np.random.default_rng(5)
+    pts3d = rng.uniform(-0.05, 0.05, (s, n, 3)).astype(np.float32)
+    t_gt = np.array([0.0, 0.0, 0.5], np.float32)
+    uv = pts3d[..., :2] / (pts3d[..., 2:] + t_gt[2]) * 600.0 + 209.5
+    uv += rng.normal(0, 1.0, uv.shape)
+    out = rng.uniform(size=(s, n)) < 0.3
+    uv[out] = rng.uniform(0, 420, (int(out.sum()), 2))
+    validn = rng.uniform(size=(s, n)) < 0.85
+    rs = np.stack([np.eye(3, dtype=np.float32)] * (s * h)).reshape(s, h, 3, 3)
+    rs = rs + rng.normal(0, 0.02, rs.shape).astype(np.float32)
+    ts = t_gt + rng.normal(0, 0.004, (s, h, 3)).astype(np.float32)
+    tt = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    k_f = torch.full((s, 2), 600.0, device=device)
+    k_c = torch.full((s, 2), 209.5, device=device)
+    ops = pnp._score_inputs(tt(uv), tt(pts3d), tt(validn), tt(rs), tt(ts), k_f, k_c, 10.0)
+    cnt_k = pnp.score_hypotheses(*ops)
+    cnt_p = pnp.score_hypotheses_plain(*ops)
+    diff = (cnt_k - cnt_p).abs()
+    agree = float((diff == 0).float().mean())
+    ms_k = cuda_ms(torch, lambda: pnp.score_hypotheses(*ops))
+    ms_p = cuda_ms(torch, lambda: pnp.score_hypotheses_plain(*ops))
+    result["ransac_score"] = dict(
+        shape=[s, n, h], agree=agree, max_abs_err=float(diff.max()),
+        mean_count=float(cnt_p.mean()), ms=ms_k, plain_ms=ms_p,
+    )
+    log(2, f"ransac_score {s} sets x {n} pts x {h} hyps: counts equal {agree:.5f} (tol "
+           f"{SCORE_AGREE}), max diff {float(diff.max())} (mean count "
+           f"{float(cnt_p.mean()):.1f}); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms")
+    check(agree >= SCORE_AGREE and float(diff.max()) <= SCORE_MAX_DIFF, "scorer disagrees")
+    return result
+
+
+def main_path_inputs(torch, device, b=16):
+    """A request of b random 420 px crops with the bench's masks and
+    identity-extrinsics crop cameras."""
+    from foundpose_torch.structs import PinholeCamera
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    crops = torch.rand(b, 420, 420, 3, generator=gen, device=device)
+    masks = bench_mask(torch, gen, b, device)
+    cams = PinholeCamera(
+        f=torch.full((b, 2), 600.0, device=device),
+        c=torch.full((b, 2), 209.5, device=device),
+        T_world_from_eye=torch.eye(4, device=device).expand(b, 4, 4).contiguous(),
+        width=420, height=420,
+    )
+    return crops, masks, cams
+
+
+def stage_split(torch, model, repre, config, crops, masks, cams, gen):
+    """Milliseconds of the four stages of one request, by CUDA events."""
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.pipeline import inference
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    images = inference.preprocess_crops(crops, config)
+    fm = dinov2.extract_facet(model, images)["feature_maps"].float()
+    ev[1].record()
+    feats, valid, tids, tsc = inference.retrieve_batch(fm, masks, repre, config)
+    ev[2].record()
+    cors = inference.match_batch(feats, valid, tids, tsc, repre, config)
+    ev[3].record()
+    inference.solve_batch(valid, tids, tsc, cors, cams, config, generator=gen)
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def phase_main_path(torch, model, repre, config, device):
+    """Serves requests in windows of WARM_WINDOW until two window medians in
+    a row agree within WARM_SETTLE (at most WARM_MAX_WINDOWS windows), then
+    times TIMED_REQUESTS requests."""
+    from foundpose_torch.ops.buddies_kernel import cycle_distances
+    from foundpose_torch.ops.vit_block import fused_vit_block
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.pose import pnp
+
+    b = 16
+    crops, masks, cams = main_path_inputs(torch, device, b)
+    rgen = torch.Generator(device=device).manual_seed(1)
+    counters = (fused_vit_block, cycle_distances, pnp.score_hypotheses)
+    outs = None
+
+    def request():
+        nonlocal outs
+        t0 = time.perf_counter()
+        outs = inference.pose_from_crops(model, crops, masks, cams, repre, config, generator=rgen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    first = request()  # warms the allocator
+    warm_medians, settled = [], False
+    for _ in range(WARM_MAX_WINDOWS):
+        warm_medians.append(float(np.median([request() for _ in range(WARM_WINDOW)])))
+        settled = len(warm_medians) >= 2 and abs(warm_medians[-1] / warm_medians[-2] - 1) <= WARM_SETTLE
+        if settled:
+            break
+    lat = [request() for _ in range(TIMED_REQUESTS)]
+    launches = {name: c.launches for name, c in zip(KERNEL_SOURCES, counters)}
+    peak = torch.cuda.max_memory_allocated()
+
+    for name, v in dataclasses.asdict(outs).items():
+        check(v.shape[0] == b, f"{name} has batch {v.shape[0]}")
+        check(bool(torch.isfinite(v.float()).all()), f"{name} not finite")
+    check(tuple(outs.R_m2w.shape) == (b, 3, 3) and tuple(outs.template_ids.shape)
+          == (b, config.top_n_templates), "output shapes")
+    check(all(v > 0 for v in launches.values()), f"kernels not launched: {launches}")
+
+    splits = np.array([stage_split(torch, model, repre, config, crops, masks, cams, rgen)
+                       for _ in range(5)])
+    stages = dict(zip(("vit", "retrieval", "buddies", "solve"),
+                      np.median(splits, axis=0).tolist()))
+    q1, med, q3 = (float(v) for v in np.percentile(lat, [25, 50, 75]))
+    res = dict(
+        batch=b, timed_requests=TIMED_REQUESTS, latency_s=lat, first_request_s=first,
+        warmup_window_medians_s=warm_medians, settled=settled,
+        latency_q1_s=q1, median_latency_s=med, latency_q3_s=q3, crops_per_s=b / med,
+        stage_ms_median_of_5=stages, stage_ms_runs=splits.tolist(), peak_mem_bytes=peak,
+        launches=launches, success_rate=float(outs.success.float().mean()),
+    )
+    log(3, f"pose_from_crops batch {b} lmo.json: first request {first:.2f} s, warm-up "
+           f"window medians ms " + ", ".join(f"{x * 1e3:.2f}" for x in warm_medians)
+           + f" (settled within {WARM_SETTLE:.0%}: {settled}); {TIMED_REQUESTS} timed requests "
+           f"ms median "
+           f"{med * 1e3:.2f} (quartiles {q1 * 1e3:.2f} / {q3 * 1e3:.2f}, min "
+           f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {b / med:.1f} crops/s, "
+           "stages ms (median of 5) "
+           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+           + f", peak {peak / 2**20:.0f} MiB, launches {launches}")
+    res["profile"] = profile_request(torch, model, repre, config, crops, masks, cams, rgen)
+    return res
+
+
+def profile_request(torch, model, repre, config, crops, masks, cams, rgen):
+    """torch.profiler over one steady request: device busy share and the
+    kernels that take the device time (full table in chiprun_out/)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundpose_torch.pipeline import inference
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference.pose_from_crops(model, crops, masks, cams, repre, config, generator=rgen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # Device-side events only: an aten op's "self device time" repeats the
+    # time of the kernels it launched.
+    dev_us = [(e.key, e.self_device_time_total, e.count) for e in events
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_us.sort(key=lambda x: -x[1])
+    busy_s = sum(x[1] for x in dev_us) / 1e6
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    res = dict(wall_s=wall, device_busy_s=busy_s, device_busy_share=busy_s / wall,
+               device_ops=sum(x[2] for x in dev_us), top=dev_us[:12])
+    log(3, f"one request under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
+           f"{busy_s * 1e3:.1f} ms ({100 * busy_s / wall:.1f}%), {res['device_ops']} "
+           "device ops; top: " + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms x{c}"
+                                           for k, t, c in dev_us[:6]))
+    return res
+
+
+def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32):
+    """The structured world of tests/test_pipeline.py: a point cloud whose
+    points carry unique descriptors, templates seeing subsets of it."""
+    from foundpose_torch.ops import tfidf
+    from foundpose_torch.repre import make_repre
+    from foundpose_torch.structs import PinholeCamera
+
+    n_points = 200
+    obj_points = rng.uniform(-0.08, 0.08, size=(n_points, 3)).astype(np.float32)
+    obj_feats = rng.normal(size=(n_points, feat_dim)).astype(np.float32) * 3.0
+    tpl_point_ids = [rng.choice(n_points, size=pts_per_template, replace=False)
+                     for _ in range(num_templates)]
+    feat_vectors = np.concatenate([obj_feats[s] for s in tpl_point_ids])
+    vertices = np.concatenate([obj_points[s] for s in tpl_point_ids])
+    tpl_ids = np.repeat(np.arange(num_templates), pts_per_template).astype(np.int32)
+    words = obj_feats[rng.choice(n_points, size=n_points, replace=False)]
+    words = (words + 0.01 * rng.normal(size=words.shape)).astype(np.float32)
+    cfg = tfidf.TfidfConfig(knn_k=3)
+    descs, idfs = tfidf.calc_template_tfidf_descriptors(
+        torch.as_tensor(feat_vectors), torch.as_tensor(tpl_ids), torch.as_tensor(words),
+        num_templates, cfg,
+    )
+    cams = PinholeCamera(
+        f=torch.full((num_templates, 2), 600.0), c=torch.full((num_templates, 2), 209.5),
+        T_world_from_eye=torch.eye(4).expand(num_templates, 4, 4).contiguous(),
+        width=420, height=420,
+    )
+    repre = make_repre(feat_vectors, vertices, tpl_ids, words, idfs.numpy(), descs.numpy(),
+                       cams, tfidf_config=cfg)
+    return repre, obj_points, obj_feats, tpl_point_ids
+
+
+def render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, target, r_gt, t_gt):
+    """Feature map + mask of a crop seeing template `target` under (r_gt, t_gt)."""
+    pts = obj_points[tpl_point_ids[target]]
+    feats = obj_feats[tpl_point_ids[target]]
+    cam = pts @ r_gt.T + t_gt
+    proj = cam[:, :2] / cam[:, 2:3] * 600.0 + 209.5
+    fmap = rng.normal(size=(30, 30, obj_feats.shape[1])).astype(np.float32) * 0.05
+    mask = np.zeros((420, 420), dtype=np.float32)
+    for p, f in zip(proj, feats):
+        cx, cy = int(p[0] // 14.0), int(p[1] // 14.0)
+        if 0 <= cx < 30 and 0 <= cy < 30:
+            fmap[cy, cx] = f
+            mask[cy * 14 : (cy + 1) * 14, cx * 14 : (cx + 1) * 14] = 1.0
+    return fmap, mask
+
+
+def phase_world(torch, lmo_config, device):
+    from foundpose_torch import geometry
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.structs import PinholeCamera
+
+    rng = np.random.default_rng(0)
+    repre, obj_points, obj_feats, tpl_point_ids = make_world(torch, rng)
+    r_gt = geometry.rodrigues(torch.tensor([0.1, -0.2, 0.15])).numpy()
+    t_gt = np.array([0.0, 0.0, 0.5], np.float32)
+    targets = [2, 5, 0, 7]
+    fm, mk = zip(*(render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, t, r_gt, t_gt)
+                   for t in targets))
+    b = len(targets)
+    config = dataclasses.replace(
+        lmo_config, top_n_templates=3, top_k_buddies=60, pnp_ransac_iter=200
+    )
+    draws = torch.as_tensor(rng.integers(0, 60, size=(b, 3, 200, 6)))
+    cams = PinholeCamera(
+        f=torch.full((b, 2), 600.0), c=torch.full((b, 2), 209.5),
+        T_world_from_eye=torch.eye(4).expand(b, 4, 4).contiguous(), width=420, height=420,
+    )
+    repre = repre.cast_banks(config.compute_dtype)
+    args = (torch.as_tensor(np.stack(fm)), torch.as_tensor(np.stack(mk)), cams, repre)
+
+    def run(dev):
+        moved = [a.to(dev) for a in args]
+        out = inference.pose_from_features(*moved, config, draws=draws.to(dev))
+        return {k: v.cpu() for k, v in dataclasses.asdict(out).items()}
+
+    gpu, cpu = run(device), run("cpu")
+    same_ids = bool((gpu["template_ids"] == cpu["template_ids"]).all())
+    same_success = bool((gpu["success"] == cpu["success"]).all())
+    dr = float((gpu["R_m2c"] - cpu["R_m2c"]).abs().max())
+    dt = float((gpu["t_m2c"] - cpu["t_m2c"]).abs().max())
+    rot_err = geometry.rotation_error_deg(gpu["R_m2c"], torch.as_tensor(r_gt)[None]).tolist()
+    t_err = (gpu["t_m2c"] - torch.as_tensor(t_gt)).abs().amax(-1).tolist()
+    res = dict(
+        crops=b, targets=targets, template_ids=gpu["template_ids"].tolist(),
+        same_template_ids=same_ids, same_success=same_success,
+        success=gpu["success"].tolist(), max_abs_R_gpu_vs_cpu=dr, max_abs_t_gpu_vs_cpu=dt,
+        rot_err_deg=rot_err, t_err_max_m=t_err,
+    )
+    log(4, f"structured world, {b} crops, bf16 + approx_topk: template_ids equal "
+           f"{same_ids}, success equal {same_success}, |R| gpu-cpu {dr:.2e}, |t| {dt:.2e}; "
+           f"gpu vs truth rot {max(rot_err):.3f} deg (tol 6), t {max(t_err) * 100:.3f} cm "
+           f"(tol 2)")
+    check(same_ids and same_success, "card and CPU disagree on templates or success")
+    check(all(gpu["success"].tolist()), "a crop failed on the card")
+    check(max(rot_err) < 6.0 and max(t_err) <= 0.02, "card pose off the ground truth")
+    return res
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from foundpose_torch.models import bench_weights
+    from foundpose_torch.models.dinov2 import DinoV2
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.synthetic import realistic_repre
+
+    device = torch.device("cuda", 0)
+    report = {"card": phase_card(torch)}
+    report["build"] = phase_build()
+    with open(LMO_CONFIG) as f:
+        opts = json.load(f)
+    config = inference.inference_config_from_opts(opts)
+    vit_cfg = inference.vit_config_from_opts(opts)
+    params = bench_weights.realistic_params(0, vit_cfg)
+    logit_max = float(bench_weights.attention_logit_maxima(
+        params, vit_cfg, probe_size=420, probe_batch=1).max())
+    check(logit_max < 99.0, f"attention logits {logit_max} leave the capped window")
+    model = DinoV2(vit_cfg)
+    model.load_state_dict(state_dict_from_jax_params(params, vit_cfg))
+    model = model.to(device).eval()
+    t0 = time.perf_counter()
+    repre = realistic_repre(0, device).cast_banks(config.compute_dtype)
+    torch.cuda.synchronize()
+    report["setup"] = dict(attn_logit_max_420px=logit_max,
+                           repre_seconds=time.perf_counter() - t0)
+    with torch.no_grad():
+        report["kernels"] = phase_kernels(torch, model, vit_cfg, repre, config, device)
+        report["main_path"] = phase_main_path(torch, model, repre, config, device)
+        report["world"] = phase_world(torch, config, device)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    kernels = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        k = report["kernels"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=report["main_path"]["launches"][name],
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

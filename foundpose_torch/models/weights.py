@@ -1,0 +1,60 @@
+"""DINOv2 weights: official checkpoints and the JAX package's parameter
+tree (counterpart of foundpose_tpu/models/weights.py).
+
+`DinoV2` carries the official state-dict names, so an official
+`dinov2_<variant>[_reg4]_pretrain.pth` loads with `load_state_dict`
+(`strict=False`: the checkpoint also holds `mask_token`, which feature
+extraction does not use). The JAX package stores the same weights as a numpy/jax tree with blocks stacked on axis 0,
+conv kernels in HWIO and linear kernels as (in, out);
+`state_dict_from_jax_params` is the exact inverse of the JAX package's
+`params_from_torch_state_dict`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from foundpose_torch.models.dinov2 import DinoV2Config
+
+
+def state_dict_from_jax_params(
+    params_np: Dict[str, Any], cfg: DinoV2Config
+) -> Dict[str, torch.Tensor]:
+    """Official-layout state dict (f32 torch tensors) from the JAX param tree."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    sd = {
+        # HWIO (P, P, 3, D) -> OIHW (D, 3, P, P).
+        "patch_embed.proj.weight": t(np.asarray(params_np["patch_kernel"]).transpose(3, 2, 0, 1)),
+        "patch_embed.proj.bias": t(params_np["patch_bias"]),
+        "cls_token": t(params_np["cls_token"]),
+        "pos_embed": t(params_np["pos_embed"]),
+        "norm.weight": t(params_np["norm_scale"]),
+        "norm.bias": t(params_np["norm_bias"]),
+    }
+    if cfg.num_register_tokens:
+        sd["register_tokens"] = t(params_np["register_tokens"])
+    if cfg.swiglu:
+        raise NotImplementedError("SwiGLU (ViT-G) blocks are not ported")
+    blocks = {k: np.asarray(v) for k, v in params_np["blocks"].items()}
+    linear = {
+        "attn.qkv": "qkv", "attn.proj": "proj", "mlp.fc1": "fc1", "mlp.fc2": "fc2",
+    }
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}"
+        sd[f"{pre}.norm1.weight"] = t(blocks["norm1_scale"][i])
+        sd[f"{pre}.norm1.bias"] = t(blocks["norm1_bias"][i])
+        sd[f"{pre}.norm2.weight"] = t(blocks["norm2_scale"][i])
+        sd[f"{pre}.norm2.bias"] = t(blocks["norm2_bias"][i])
+        sd[f"{pre}.ls1.gamma"] = t(blocks["ls1"][i])
+        sd[f"{pre}.ls2.gamma"] = t(blocks["ls2"][i])
+        for name, jax_name in linear.items():
+            # (in, out) -> nn.Linear's (out, in).
+            sd[f"{pre}.{name}.weight"] = t(blocks[f"{jax_name}_kernel"][i].T)
+            sd[f"{pre}.{name}.bias"] = t(blocks[f"{jax_name}_bias"][i])
+    return sd

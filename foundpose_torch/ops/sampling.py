@@ -1,0 +1,76 @@
+"""Query-grid generation, mask filtering and grid feature sampling
+(counterpart of foundpose_tpu/ops/sampling.py)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def grid_points(grid_size: Tuple[int, int], cell_size: float, device=None) -> torch.Tensor:
+    """[(W/cell)*(H/cell), 2] (x, y) cell centres, row-major over y then x."""
+    w, h = grid_size
+    cols = int(w / cell_size)
+    rows = int(h / cell_size)
+    half = cell_size / 2.0
+    xs = torch.linspace(half, w - half, cols, dtype=torch.float32, device=device)
+    ys = torch.linspace(half, h - half, rows, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+
+
+def points_in_mask(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Validity [..., Q] of [Q, 2] points against [..., H, W] masks: the
+    +0.5-rounded pixel must lie inside the canvas and on the mask."""
+    h, w = mask.shape[-2], mask.shape[-1]
+    pi = torch.floor(points + 0.5).long()
+    x, y = pi[..., 0], pi[..., 1]
+    in_canvas = (x > 0) & (x < w) & (y > 0) & (y < h)
+    xc = torch.clamp(x, 0, w - 1)
+    yc = torch.clamp(y, 0, h - 1)
+    on_mask = mask[..., yc, xc] > 0
+    return in_canvas & on_mask
+
+
+def sample_grid_features(
+    feature_map_hwc: torch.Tensor,
+    points: torch.Tensor,
+    image_size: Tuple[int, int],
+    cell_size: float,
+) -> torch.Tensor:
+    """Features [..., Q, C] of a [..., Hf, Wf, C] map at the regular query
+    grid of `grid_points(image_size, cell_size)`.
+
+    When the grid matches the feature map one cell per texel (stride-14
+    DINOv2 on 14-px cells, the shipped configurations) every cell centre
+    lands on a texel and sampling is a reshape.
+    """
+    hf, wf = feature_map_hwc.shape[-3], feature_map_hwc.shape[-2]
+    cols = int(image_size[0] / cell_size)
+    rows = int(image_size[1] / cell_size)
+    if (
+        (wf, hf) == (cols, rows)
+        and image_size[0] / wf == cell_size
+        and image_size[1] / hf == cell_size
+        and points.shape[0] == rows * cols
+    ):
+        return feature_map_hwc.reshape(
+            *feature_map_hwc.shape[:-3], rows * cols, feature_map_hwc.shape[-1]
+        )
+    raise NotImplementedError(
+        "bilinear feature sampling off the texel grid (foundpose_tpu/ops/"
+        "warp.py) is not ported yet; ROADMAP.md Queue 1 lists it"
+    )
+
+
+def subsample_points(
+    valid: torch.Tensor, max_count: int, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Randomly keeps at most `max_count` valid points per row of [..., Q]."""
+    scores = torch.rand(
+        valid.shape, generator=generator, device=valid.device, dtype=torch.float32
+    )
+    scores = torch.where(valid, scores, torch.full_like(scores, -1.0))
+    thresh = torch.topk(scores, max_count, dim=-1).values[..., -1:]
+    return valid & (scores >= thresh)

@@ -1,0 +1,81 @@
+"""The PyTorch port stands alone: no JAX import anywhere in its package, and
+chip_smoke.py refuses to run without a GPU."""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "foundpose_torch")
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+
+
+def test_no_jax_import_statements():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|foundpose_tpu)\b", re.M)
+    offenders = [p for p in _sources() if pattern.search(open(p).read())]
+    assert not offenders, offenders
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'flax', 'foundpose_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import foundpose_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(foundpose_torch.__path__, 'foundpose_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 17
+
+
+@pytest.mark.parametrize("isolated", [False, True])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, isolated):
+    """On a CPU-only machine (and in a directory holding chip_smoke.py
+    alone) the script exits non-zero and prints no result line."""
+    script = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if isolated:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, script], cwd=cwd, capture_output=True, text=True, timeout=120, env=env
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_inference_config_from_lmo_json():
+    from foundpose_torch.pipeline import inference
+
+    import torch
+
+    with open(os.path.join(ROOT, "configs", "infer", "lmo.json")) as f:
+        opts = json.load(f)
+    cfg = inference.inference_config_from_opts(opts)
+    assert cfg.crop_size == (420, 420)
+    assert (cfg.top_n_templates, cfg.top_k_buddies, cfg.pnp_ransac_iter) == (5, 300, 200)
+    assert cfg.approx_topk and cfg.compute_dtype == torch.bfloat16
+    vit = inference.vit_config_from_opts(opts)
+    assert (vit.embed_dim, vit.layer, vit.num_register_tokens) == (384, 9, 4)
+    assert vit.approx_gelu and vit.softmax_stabilizer == "capped"
+    with open(os.path.join(ROOT, "configs", "infer", "lmo_exact.json")) as f:
+        exact = inference.inference_config_from_opts(json.load(f))
+    assert exact.pnp_ransac_iter >= cfg.pnp_ransac_iter
