@@ -5,11 +5,16 @@
 
 Phases (each prints one line and raises on failure):
   0  card: name, power limit, device count; TF32 switched off.
-  1  build: compiles csrc/*.cu with nvcc (sm_90a) into foundpose_torch/_build.
-  2  kernels vs their plain PyTorch twins at the main path's shapes (bf16):
-     the ViT block per layer (whole output and the residual branches alone)
-     and over all layers, the buddies cycle distances, the RANSAC scorer;
-     errors against stated tolerances and CUDA-event times of kernel and twin.
+  1  build: compiles csrc/*.cu with nvcc (sm_90a), one process per source,
+     all started together, into foundpose_torch/_build.
+  2  kernels vs their plain PyTorch twins at their paths' shapes: the ViT
+     block per layer (whole output and the residual branches alone) and
+     over all layers, the buddies cycle distances, the RANSAC scorer (bf16
+     lmo.json path); attention at f32 and bf16 (the unfused path's
+     layer-0 q, k, v); both GEMMs of the int8/bf16 probe. Errors against
+     stated tolerances; CUDA-event times of kernel, twin and, where one
+     PyTorch call computes the same function, that call; the least time
+     the card could take (bound).
   3  main path: DINOv2 ViT-S/14-reg (calibrated random weights), an LM-O
      scale synthetic representation and configs/infer/lmo.json, serving
      batches of 420 px crops through pipeline.inference.pose_from_crops until
@@ -17,7 +22,18 @@ Phases (each prints one line and raises on failure):
      a per-stage split, peak memory, proof that all three kernels launched,
      and torch.profiler over one request (device busy share, top kernels).
   4  pose correctness on a structured world with known poses: the card
-     (kernels) against the CPU (twins), and the card against ground truth.
+     (kernels) against the CPU (twins), and the card against ground truth,
+     under lmo.json (bf16, approx top-k) and lmo_exact.json (f32, exact).
+  5  serving path: foundpose_torch.engine.PoseEngine at
+     configs/infer/lmo_exact.json (unfused f32 ViT on the attention kernel,
+     exact top-k, 400 hypotheses) with two LM-O scale objects, one 480x640
+     image and 16 boxes: estimate() until the latency settles, then 30
+     timed calls; estimate_mixed() over both objects; proof that attention
+     launched 10 times a request and the block and buddies kernels never;
+     cuDNN's TF32 switch does not change the results; card vs CPU on one
+     request with the same draws.
+  6  the int8/bf16 GEMM probe through its entry point
+     (foundpose_torch.benchmarks.micro_int8.run).
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -37,7 +53,14 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LMO_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo.json")
+LMO_EXACT_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo_exact.json")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# LM-O's camera (BOP lmo camera.json), for the serving phase's 640x480 image.
+LMO_K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]])
+
+# H100 SXM data-sheet peaks for the bounds (at the full 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 # Tolerances of the kernel-vs-twin comparisons (bf16 on the card).
 BLOCK_REL_L2 = 1e-2  # per layer, relative L2 of the block output
@@ -50,6 +73,10 @@ BUDDIES_Q2O_AGREE = 0.99  # share of valid queries with equal q2o
 BUDDIES_CD_ATOL = 1e-4
 SCORE_AGREE = 0.995  # share of hypotheses with equal counts
 SCORE_MAX_DIFF = 1.0
+# Attention kernel vs twin, relative L2: f32 differs only in summation
+# order; bf16 also in where p / sum rounds.
+ATTN_REL_L2 = {"f32": 1e-5, "bf16": 1e-2}
+PROBE_BF16_REL_L2 = 1e-5  # int8 must be exact
 
 # Phase 3 serves windows of WARM_WINDOW requests until two window medians in
 # a row agree within WARM_SETTLE (the first requests of a process run slower),
@@ -61,11 +88,48 @@ KERNEL_SOURCES = {
     "vit_block": ("foundpose_torch/csrc/vit_block.cu", "foundpose_tpu/ops/vit_block.py:126"),
     "buddies": ("foundpose_torch/csrc/buddies.cu", "foundpose_tpu/ops/buddies_kernel.py:46"),
     "ransac_score": ("foundpose_torch/csrc/score.cu", "foundpose_tpu/pose/pnp.py:35"),
+    "attention": ("foundpose_torch/csrc/attention.cu", "foundpose_tpu/ops/attention.py:31"),
+    "micro_mm": ("foundpose_torch/csrc/micro_mm.cu", "benchmarks/micro_int8.py:58"),
 }
 
 
 def log(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
+
+
+def counters():
+    """Every kernel wrapper, by kernel name (each counts its launches)."""
+    from foundpose_torch.benchmarks import micro_int8
+    from foundpose_torch.ops.attention import fused_attention_bhtd
+    from foundpose_torch.ops.buddies_kernel import cycle_distances
+    from foundpose_torch.ops.vit_block import fused_vit_block
+    from foundpose_torch.pose import pnp
+
+    return {
+        "vit_block": fused_vit_block, "buddies": cycle_distances,
+        "ransac_score": pnp.score_hypotheses, "attention": fused_attention_bhtd,
+        "mm_bf16": micro_int8.mm_bf16, "mm_int8": micro_int8.mm_int8,
+    }
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def bound(flops, nbytes, peak):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of bytes over the memory rate and operations over `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[peak]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(torch, fn, reps=20, warm=3):
@@ -179,11 +243,17 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     col_branch = rel_l2(col_k.float() - x0.float(), col_p.float() - x0.float())
     ms_k = cuda_ms(torch, lambda: fused_vit_block(x0, p0, softmax_stabilizer="capped", **kw))
     ms_p = cuda_ms(torch, lambda: fused_vit_block_plain(x0, p0, softmax_stabilizer="capped", **kw))
+    t, d, hid = x0.shape[1], x0.shape[2], vit_cfg.mlp_hidden
+    m = b * t
+    block_flops = (2 * m * d * (4 * d + 2 * hid)
+                   + 4 * b * vit_cfg.num_heads * t * t * vit_cfg.head_dim)
+    bms, by = bound(block_flops, 2 * nbytes(x0) + nbytes(*p0.values()), "bf16")
     result["vit_block"] = dict(
         shape=list(x0.shape), rel_l2_per_layer=rel, branch_rel_l2_per_layer=branch,
         column_rel_l2=col_rel, column_branch_rel_l2=col_branch,
         fmap_cos_median=cos_med, fmap_cos_min=cos_min, max_abs_err=block_err,
-        ms=ms_k, plain_ms=ms_p,
+        ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by, library_ms=None,
+        gflop=block_flops / 1e9,
     )
     log(2, f"vit_block x{list(x0.shape)} bf16: rel L2/layer max {max(rel):.2e} (tol "
            f"{BLOCK_REL_L2}), branches (out - x) max {max(branch):.2e} (tol {BRANCH_REL_L2}), "
@@ -216,10 +286,15 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     masked_ok = bool((cd_k[~valid] == cd_p[~valid]).all())
     ms_k = cuda_ms(torch, lambda: cycle_distances(qf, qmask, grid, sel_feats, sel_mask))
     ms_p = cuda_ms(torch, lambda: cycle_distances_plain(qf, qmask, grid, sel_feats, sel_mask))
+    # The distances this run's data needs: valid queries x valid bank rows.
+    pairs = float((qmask.sum(-1).float() * sel_mask.sum((1, 2)).float()).sum())
+    bms, by = bound(2.0 * sel_feats.shape[3] * pairs,
+                    nbytes(qf, qmask, grid, sel_feats, sel_mask, cd_k, q2o_k), "bf16")
     result["buddies"] = dict(
         shape=[list(qf.shape), list(sel_feats.shape)], valid_queries=int(qmask.sum()),
         q2o_agree=q2o_agree, cd_agree_where_q2o_agrees=cd_agree,
         max_abs_err=float(dcd[same].max()), ms=ms_k, plain_ms=ms_p,
+        bound_ms=bms, bound_by=by, library_ms=None, valid_pairs=pairs,
     )
     log(2, f"buddies {list(qf.shape)} x {list(sel_feats.shape)}: {int(qmask.sum())} valid "
            f"queries, q2o agree {q2o_agree:.5f} (tol {BUDDIES_Q2O_AGREE}), cd within "
@@ -251,15 +326,95 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     agree = float((diff == 0).float().mean())
     ms_k = cuda_ms(torch, lambda: pnp.score_hypotheses(*ops))
     ms_p = cuda_ms(torch, lambda: pnp.score_hypotheses_plain(*ops))
+    # 30 f32 operations a point test (three 4-term dots, the two error
+    # terms, both squared norms, the count), every point of every set.
+    bms, by = bound(30.0 * s * n * h, nbytes(*ops, cnt_k), "f32")
     result["ransac_score"] = dict(
         shape=[s, n, h], agree=agree, max_abs_err=float(diff.max()),
         mean_count=float(cnt_p.mean()), ms=ms_k, plain_ms=ms_p,
+        bound_ms=bms, bound_by=by, library_ms=None,
     )
     log(2, f"ransac_score {s} sets x {n} pts x {h} hyps: counts equal {agree:.5f} (tol "
            f"{SCORE_AGREE}), max diff {float(diff.max())} (mean count "
            f"{float(cnt_p.mean()):.1f}); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms")
     check(agree >= SCORE_AGREE and float(diff.max()) <= SCORE_MAX_DIFF, "scorer disagrees")
+    result["attention"] = attention_vs_twin(torch, model, vit_cfg, crops)
+    result["micro_mm"] = probe_vs_twin(torch, device)
     return result
+
+
+def attention_vs_twin(torch, model, vit_cfg, crops):
+    """The attention kernel on the unfused f32 path's layer-0 q, k, v
+    [16, 6, 905, 64] of the same crops, at f32 (the path) and bf16."""
+    import torch.nn.functional as F
+
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
+    from foundpose_torch.ops.vit_block import layer_norm
+
+    x, _ = dinov2.embed_tokens(model, dinov2.normalize_images(crops))
+    b, t, _ = x.shape
+    p = model.blocks[0].kernel_params(torch.float32)
+    xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], vit_cfg.layer_norm_eps)
+    qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"]).reshape(
+        b, t, 3, vit_cfg.num_heads, vit_cfg.head_dim).permute(2, 0, 3, 1, 4).contiguous()
+    flops = 4.0 * b * vit_cfg.num_heads * t * t * vit_cfg.head_dim
+    res = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (qkv[i].to(dt).contiguous() for i in range(3))
+        got = fused_attention_bhtd(q, k, v)
+        ref = attention_plain(q, k, v)
+        rel = float(torch.linalg.vector_norm((got - ref).float()) / torch.linalg.vector_norm(ref.float()))
+        err = float((got.float() - ref.float()).abs().max())
+        bms, by = bound(flops, 4 * nbytes(q), name)
+        res[name] = dict(
+            rel_l2=rel, max_abs_err=err, bound_ms=bms, bound_by=by,
+            ms=cuda_ms(torch, lambda: fused_attention_bhtd(q, k, v)),
+            plain_ms=cuda_ms(torch, lambda: attention_plain(q, k, v)),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+        )
+        r = res[name]
+        log(2, f"attention {list(q.shape)} {name}: rel L2 {rel:.2e} (tol {ATTN_REL_L2[name]}), "
+               f"max abs {err:.2e}; kernel {r['ms']:.3f} ms vs twin {r['plain_ms']:.3f} ms vs "
+               f"scaled_dot_product_attention {r['library_ms']:.3f} ms; bound {bms:.4f} ms ({by})")
+        check(rel <= ATTN_REL_L2[name], f"attention {name} rel L2 {rel}")
+    return {**res["f32"], "shape": list(qkv.shape[1:]), "gflop": flops / 1e9, "bf16": res["bf16"]}
+
+
+def probe_vs_twin(torch, device):
+    """Both probe GEMMs at the TPU probe's shapes against their twins:
+    int8 -> int32 exact, bf16 -> f32 within PROBE_BF16_REL_L2."""
+    from foundpose_torch.benchmarks import micro_int8
+
+    b, t, d, h = micro_int8.SHAPE
+    res = {}
+    for dt, (a, w) in micro_int8.probe_inputs(device).items():
+        int8 = dt == torch.int8
+        fn = micro_int8.mm_int8 if int8 else micro_int8.mm_bf16
+        got, ref = fn(a, w), micro_int8.mm_plain(a, w)
+        err = float((got - ref).abs().max())
+        rel = float(torch.linalg.vector_norm((got - ref).float()) / torch.linalg.vector_norm(ref.float()))
+        if int8:
+            library = lambda: torch._int_mm(a.view(b * t, d), w)
+        else:
+            library = lambda: torch.matmul(a, w)
+        bms, by = micro_int8.bound_ms(b * t, d, h, dt)
+        name = "int8" if int8 else "bf16"
+        res[name] = dict(
+            rel_l2=rel, max_abs_err=err, bound_ms=bms, bound_by=by,
+            ms=cuda_ms(torch, lambda: fn(a, w)),
+            plain_ms=cuda_ms(torch, lambda: micro_int8.mm_plain(a, w), reps=5),
+            library_ms=cuda_ms(torch, library),
+        )
+        r = res[name]
+        log(2, f"probe GEMM {name} [{b}, {t}, {d}] x [{d}, {h}]: max abs err {err:.3g}, rel L2 "
+               f"{rel:.2e}; kernel {r['ms']:.4f} ms vs twin {r['plain_ms']:.3f} ms vs "
+               f"{'torch._int_mm' if int8 else 'torch.matmul (bf16 out)'} {r['library_ms']:.4f} ms; "
+               f"bound {bms:.4f} ms ({by})")
+        del got, ref
+    check(res["int8"]["max_abs_err"] == 0.0, "int8 probe GEMM is not exact")
+    check(res["bf16"]["rel_l2"] <= PROBE_BF16_REL_L2, f"bf16 probe GEMM rel L2 {res['bf16']['rel_l2']}")
+    return {**res["int8"], "shape": [b, t, d, h], "bf16": res["bf16"]}
 
 
 def main_path_inputs(torch, device, b=16):
@@ -303,15 +458,11 @@ def phase_main_path(torch, model, repre, config, device):
     """Serves requests in windows of WARM_WINDOW until two window medians in
     a row agree within WARM_SETTLE (at most WARM_MAX_WINDOWS windows), then
     times TIMED_REQUESTS requests."""
-    from foundpose_torch.ops.buddies_kernel import cycle_distances
-    from foundpose_torch.ops.vit_block import fused_vit_block
     from foundpose_torch.pipeline import inference
-    from foundpose_torch.pose import pnp
 
     b = 16
     crops, masks, cams = main_path_inputs(torch, device, b)
     rgen = torch.Generator(device=device).manual_seed(1)
-    counters = (fused_vit_block, cycle_distances, pnp.score_hypotheses)
     outs = None
 
     def request():
@@ -323,8 +474,7 @@ def phase_main_path(torch, model, repre, config, device):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    reset_counts()
     first = request()  # warms the allocator
     warm_medians, settled = [], False
     for _ in range(WARM_MAX_WINDOWS):
@@ -333,7 +483,7 @@ def phase_main_path(torch, model, repre, config, device):
         if settled:
             break
     lat = [request() for _ in range(TIMED_REQUESTS)]
-    launches = {name: c.launches for name, c in zip(KERNEL_SOURCES, counters)}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     for name, v in dataclasses.asdict(outs).items():
@@ -341,7 +491,8 @@ def phase_main_path(torch, model, repre, config, device):
         check(bool(torch.isfinite(v.float()).all()), f"{name} not finite")
     check(tuple(outs.R_m2w.shape) == (b, 3, 3) and tuple(outs.template_ids.shape)
           == (b, config.top_n_templates), "output shapes")
-    check(all(v > 0 for v in launches.values()), f"kernels not launched: {launches}")
+    check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+          f"kernels not launched: {launches}")
 
     splits = np.array([stage_split(torch, model, repre, config, crops, masks, cams, rgen)
                        for _ in range(5)])
@@ -364,21 +515,20 @@ def phase_main_path(torch, model, repre, config, device):
            "stages ms (median of 5) "
            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
            + f", peak {peak / 2**20:.0f} MiB, launches {launches}")
-    res["profile"] = profile_request(torch, model, repre, config, crops, masks, cams, rgen)
+    res["profile"] = profile_call(torch, lambda: inference.pose_from_crops(
+        model, crops, masks, cams, repre, config, generator=rgen), 3, "profile.txt")
     return res
 
 
-def profile_request(torch, model, repre, config, crops, masks, cams, rgen):
-    """torch.profiler over one steady request: device busy share and the
-    kernels that take the device time (full table in chiprun_out/)."""
+def profile_call(torch, fn, phase, table_name):
+    """torch.profiler over one steady request `fn()`: device busy share and
+    the kernels that take the device time (the full table goes to OUT_DIR)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from foundpose_torch.pipeline import inference
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        inference.pose_from_crops(model, crops, masks, cams, repre, config, generator=rgen)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -389,11 +539,11 @@ def profile_request(torch, model, repre, config, crops, masks, cams, rgen):
     dev_us.sort(key=lambda x: -x[1])
     busy_s = sum(x[1] for x in dev_us) / 1e6
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, table_name), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
     res = dict(wall_s=wall, device_busy_s=busy_s, device_busy_share=busy_s / wall,
                device_ops=sum(x[2] for x in dev_us), top=dev_us[:12])
-    log(3, f"one request under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
+    log(phase, f"one request under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
            f"{busy_s * 1e3:.1f} ms ({100 * busy_s / wall:.1f}%), {res['device_ops']} "
            "device ops; top: " + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms x{c}"
                                            for k, t, c in dev_us[:6]))
@@ -448,7 +598,9 @@ def render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, target, r_gt,
     return fmap, mask
 
 
-def phase_world(torch, lmo_config, device):
+def phase_world(torch, base_config, device):
+    """The structured world under `base_config`'s dtype and top-k path,
+    with 3 templates, 60 buddies and 200 hypotheses."""
     from foundpose_torch import geometry
     from foundpose_torch.pipeline import inference
     from foundpose_torch.structs import PinholeCamera
@@ -462,7 +614,7 @@ def phase_world(torch, lmo_config, device):
                    for t in targets))
     b = len(targets)
     config = dataclasses.replace(
-        lmo_config, top_n_templates=3, top_k_buddies=60, pnp_ransac_iter=200
+        base_config, top_n_templates=3, top_k_buddies=60, pnp_ransac_iter=200
     )
     draws = torch.as_tensor(rng.integers(0, 60, size=(b, 3, 200, 6)))
     cams = PinholeCamera(
@@ -490,7 +642,9 @@ def phase_world(torch, lmo_config, device):
         success=gpu["success"].tolist(), max_abs_R_gpu_vs_cpu=dr, max_abs_t_gpu_vs_cpu=dt,
         rot_err_deg=rot_err, t_err_max_m=t_err,
     )
-    log(4, f"structured world, {b} crops, bf16 + approx_topk: template_ids equal "
+    path = (f"{str(config.compute_dtype).split('.')[-1]} + "
+            f"{'approx' if config.approx_topk else 'exact'} top-k")
+    log(4, f"structured world, {b} crops, {path}: template_ids equal "
            f"{same_ids}, success equal {same_success}, |R| gpu-cpu {dr:.2e}, |t| {dt:.2e}; "
            f"gpu vs truth rot {max(rot_err):.3f} deg (tol 6), t {max(t_err) * 100:.3f} cm "
            f"(tol 2)")
@@ -498,6 +652,189 @@ def phase_world(torch, lmo_config, device):
     check(all(gpu["success"].tolist()), "a crop failed on the card")
     check(max(rot_err) < 6.0 and max(t_err) <= 0.02, "card pose off the ground truth")
     return res
+
+
+def serving_request(n=16, seed=3):
+    """One 480x640 uint8 image and n detection boxes (60-200 px, aspect
+    0.7-1.4, inside the image), from a seed."""
+    rng = np.random.default_rng(seed)
+    image = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    boxes = []
+    for _ in range(n):
+        w = rng.uniform(60, 200)
+        h = float(np.clip(w * rng.uniform(0.7, 1.4), 40, 300))
+        x = rng.uniform(0, 640 - w)
+        y = rng.uniform(0, 480 - h)
+        boxes.append(np.array([x, y, x + w, y + h], np.float32))
+    return image, boxes
+
+
+def phase_serving(torch, params, device):
+    """PoseEngine at lmo_exact.json on the card (see the module docstring)."""
+    from foundpose_torch.engine import PoseEngine
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.synthetic import realistic_repre
+
+    with open(LMO_EXACT_CONFIG) as f:
+        opts = json.load(f)
+    o = opts["infer_opts"]
+    config = inference.inference_config_from_opts(opts)
+    vit_cfg = inference.vit_config_from_opts(opts)
+    weights = os.path.join(ROOT, "foundpose_torch", "_build", "bench_vits14_reg.pth")
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    torch.save(state_dict_from_jax_params(params, vit_cfg), weights)
+    named = dinov2.parse_model_name(o["extractor_name"])
+    kw = dict(
+        extractor_name=o["extractor_name"], weights_path=weights, config=config,
+        batch_size=o["batch_size"], seed=0,
+        extractor_overrides={f.name: getattr(vit_cfg, f.name) for f in dataclasses.fields(vit_cfg)
+                             if getattr(vit_cfg, f.name) != getattr(named, f.name)},
+    )
+    engine = PoseEngine(**kw, device=device)
+    check(not engine.vit_cfg.use_fused_block and config.compute_dtype == torch.float32,
+          "lmo_exact.json did not resolve to the unfused f32 path")
+    t0 = time.perf_counter()
+    repres = {1: realistic_repre(0, device), 2: realistic_repre(1, device)}
+    for obj_id, r in repres.items():
+        engine.register_object(obj_id, r)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    image, boxes = serving_request()
+    n = len(boxes)
+    out = None
+
+    def request():
+        nonlocal out
+        t0 = time.perf_counter()
+        out = engine.estimate(1, image, boxes, LMO_K)  # ends in one device->host fetch
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = request()
+    warm_medians, settled = [], False
+    for _ in range(WARM_MAX_WINDOWS):
+        warm_medians.append(float(np.median([request() for _ in range(WARM_WINDOW)])))
+        settled = len(warm_medians) >= 2 and abs(warm_medians[-1] / warm_medians[-2] - 1) <= WARM_SETTLE
+        if settled:
+            break
+    lat = [request() for _ in range(TIMED_REQUESTS)]
+    dets = [{"obj_id": 1 + i % 2, "box_xyxy": bx} for i, bx in enumerate(boxes)]
+    t0 = time.perf_counter()
+    mixed = engine.estimate_mixed(image, dets, LMO_K)
+    mixed_s = time.perf_counter() - t0
+    requests = 2 + WARM_WINDOW * len(warm_medians) + TIMED_REQUESTS
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for res in (out, mixed):
+        check(len(res) == n, f"{len(res)} results for {n} detections")
+        check(all(np.isfinite(r["R_m2c"]).all() and np.isfinite(r["t_m2c"]).all() for r in res),
+              "non-finite pose")
+    per_request = launches["attention"] / requests
+    check(launches["attention"] == requests * (vit_cfg.layer + 1),
+          f"attention launched {launches['attention']} times in {requests} requests")
+    check(launches["vit_block"] == 0 and launches["buddies"] == 0 and launches["ransac_score"] > 0,
+          f"launches on the serving path: {launches}")
+    q1, med, q3 = (float(v) for v in np.percentile(lat, [25, 50, 75]))
+    res = dict(
+        config="configs/infer/lmo_exact.json", detections=n, requests=requests,
+        repre_setup_s=setup_s, first_request_s=first, warmup_window_medians_s=warm_medians,
+        settled=settled, latency_s=lat, latency_q1_s=q1, median_latency_s=med,
+        latency_q3_s=q3, detections_per_s=n / med, estimate_mixed_s=mixed_s,
+        peak_mem_bytes=peak, launches=launches, attention_launches_per_request=per_request,
+        success_rate=float(np.mean([r["success"] for r in out])),
+        mixed_success_rate=float(np.mean([r["success"] for r in mixed])),
+    )
+    log(5, f"PoseEngine lmo_exact.json, {n} boxes on a 480x640 image: first call {first:.2f} s, "
+           f"warm-up window medians ms " + ", ".join(f"{x * 1e3:.2f}" for x in warm_medians)
+           + f" (settled within {WARM_SETTLE:.0%}: {settled}); {TIMED_REQUESTS} timed estimate() "
+           f"ms median {med * 1e3:.2f} (quartiles {q1 * 1e3:.2f} / {q3 * 1e3:.2f}, min "
+           f"{min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), {n / med:.1f} detections/s; "
+           f"estimate_mixed() over 2 objects {mixed_s * 1e3:.2f} ms; peak {peak / 2**20:.0f} MiB; "
+           f"launches {launches} over {requests} requests")
+    res["profile"] = profile_call(torch, lambda: engine.estimate(1, image, boxes, LMO_K), 5,
+                                  "profile_serving.txt")
+    # Stage split of one request's device work by CUDA events: the warp,
+    # then the four stages of the step as in phase 3.
+    img, src_cam, cams, _ = engine._prepare_cams(image, boxes, LMO_K)
+    dst = cams.index(torch.arange(n)).to(device)
+    masks = engine._mask_stack([None] * n, *image.shape[:2])
+    res["warp_ms"] = cuda_ms(torch, lambda: engine._warp(img, masks, src_cam, dst), reps=5)
+    crops, crop_masks = engine._warp(img, masks, src_cam, dst)
+    splits = np.array([stage_split(torch, engine.model, engine._repres[1], config, crops,
+                                   crop_masks.float(), dst, engine.generator) for _ in range(5)])
+    res["stage_ms_median_of_5"] = dict(zip(("vit", "retrieval", "buddies", "solve"),
+                                           np.median(splits, axis=0).tolist()))
+    log(5, f"stages ms (median of 5): warp {res['warp_ms']:.2f}, "
+           + ", ".join(f"{k} {v:.2f}" for k, v in res["stage_ms_median_of_5"].items()))
+
+    # Same draws for every run below: cuDNN's TF32 switch on and off, then
+    # the card against the CPU, template ids captured from the step.
+    draws = torch.randint(0, config.top_k_buddies,
+                          (engine.batch_size, config.top_n_templates, config.pnp_ransac_iter, 6),
+                          generator=torch.Generator().manual_seed(9))
+    engine._draws = lambda b: draws
+    captured = []
+    step = inference.pose_from_crops
+
+    def capture(*args, **kwargs):
+        outs = step(*args, **kwargs)
+        captured.append(outs.template_ids.cpu())
+        return outs
+
+    inference.pose_from_crops = capture
+    by_flag = {}
+    for flag in (False, True):
+        torch.backends.cudnn.allow_tf32 = flag
+        by_flag[flag] = engine.estimate(1, image, boxes, LMO_K)
+    torch.backends.cudnn.allow_tf32 = False
+    same_tf32 = all(
+        np.array_equal(a[k], b[k]) for a, b in zip(by_flag[False], by_flag[True])
+        for k in ("success", "R_m2c", "t_m2c", "quality", "best_template")
+    )
+    cpu = PoseEngine(**kw, device="cpu")
+    for obj_id, r in repres.items():
+        cpu.register_object(obj_id, r)
+    cpu._draws = lambda b: draws
+    t0 = time.perf_counter()
+    on_cpu = cpu.estimate(1, image, boxes, LMO_K)
+    cpu_s = time.perf_counter() - t0
+    inference.pose_from_crops = step
+    gpu_ids, cpu_ids = captured[0], captured[-1]
+    same_ids = bool((gpu_ids == cpu_ids).all())
+    same_success = [a["success"] for a in by_flag[False]] == [c["success"] for c in on_cpu]
+    same_best = [a["best_template"] for a in by_flag[False]] == [c["best_template"] for c in on_cpu]
+    both = [(a, c) for a, c in zip(by_flag[False], on_cpu) if a["success"] and c["success"]]
+    d_r = max([float(np.abs(a["R_m2c"] - c["R_m2c"]).max()) for a, c in both], default=0.0)
+    d_t = max([float(np.abs(a["t_m2c"] - c["t_m2c"]).max()) for a, c in both], default=0.0)
+    res.update(tf32_switch_changes_nothing=same_tf32, cpu_request_s=cpu_s,
+               same_template_ids=same_ids, same_success=same_success,
+               same_best_template=same_best, max_abs_R_gpu_vs_cpu=d_r,
+               max_abs_t_gpu_vs_cpu=d_t, successes=sum(a["success"] for a in on_cpu))
+    log(5, f"cudnn.allow_tf32 on vs off: results identical {same_tf32}; card vs CPU ({cpu_s:.1f} s "
+           f"on the CPU), same draws: template ids equal {same_ids}, success equal "
+           f"{same_success}, best template equal {same_best}, {res['successes']} of {n} "
+           f"succeeded, |R| {d_r:.2e}, |t| {d_t:.2e} where both succeeded")
+    check(same_tf32, "cuDNN's TF32 switch changed the serving results")
+    check(same_ids and same_success, "card and CPU disagree on template ids or success")
+    return res
+
+
+def phase_probe(torch):
+    """The probe's own entry point, counts from zero."""
+    from foundpose_torch.benchmarks import micro_int8
+
+    reset_counts()
+    rows = micro_int8.run()
+    launches = read_counts()
+    check(launches["mm_bf16"] > 0 and launches["mm_int8"] > 0, f"probe launches {launches}")
+    for name, r in rows.items():
+        log(6, f"probe {name} {list(micro_int8.SHAPE)}: {r['ms']:.4f} ms -> "
+               f"{r['rate_T_per_s']:.1f} T(FL)OP/s; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return dict(rows=rows, launches=launches)
 
 
 def main():
@@ -536,18 +873,37 @@ def main():
         report["kernels"] = phase_kernels(torch, model, vit_cfg, repre, config, device)
         report["main_path"] = phase_main_path(torch, model, repre, config, device)
         report["world"] = phase_world(torch, config, device)
+        with open(LMO_EXACT_CONFIG) as f:
+            exact_config = inference.inference_config_from_opts(json.load(f))
+        report["world_exact"] = phase_world(torch, exact_config, device)
+        del model, repre
+        report["serving"] = phase_serving(torch, params, device)
+        report["probe"] = phase_probe(torch)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    # Each kernel's launches come from the run of its own path: the lmo.json
+    # main path (phase 3), the lmo_exact.json serving path (phase 5), the
+    # probe's entry point (phase 6).
+    path_launches = {
+        "vit_block": report["main_path"]["launches"]["vit_block"],
+        "buddies": report["main_path"]["launches"]["buddies"],
+        "ransac_score": report["main_path"]["launches"]["ransac_score"],
+        "attention": report["serving"]["launches"]["attention"],
+        "micro_mm": report["probe"]["launches"]["mm_int8"],
+    }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         k = report["kernels"][name]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=report["main_path"]["launches"][name],
-            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-        ))
+        entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                     launches=path_launches[name], **{key: k[key] for key in keys})
+        if "bf16" in k:  # the other dtype of attention (f32 above) and the probe (int8 above)
+            entry["bf16"] = {key: k["bf16"][key] for key in keys}
+            if name == "micro_mm":
+                entry["bf16"]["launches"] = report["probe"]["launches"]["mm_bf16"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Builds and loads the hand-written CUDA kernels under `csrc/`.
 
-The kernels have a plain C interface and are compiled with `nvcc` into one
-shared library at first use, then loaded with ctypes. The library lands in
-`foundpose_torch/_build/`, named by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads the cached file. Nothing
-here runs at import: a machine without `nvcc` or a GPU imports the package
-and uses the kernels' plain PyTorch twins on CPU tensors.
+The kernels have a plain C interface. At first use every `csrc/*.cu` is
+compiled by its own `nvcc` process, all started together, and the objects
+are linked into one shared library that is loaded with ctypes. The library
+lands in `foundpose_torch/_build/`, named by a hash of the sources and flags,
+so a changed source rebuilds and an unchanged one loads the cached file.
+Nothing here runs at import: a machine without `nvcc` or a GPU imports the
+package and uses the kernels' plain PyTorch twins on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,10 +24,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +34,9 @@ _SIGNATURES = {
     "fp_vit_block": [_P] * 21 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "fp_cycle_distances": [_P] * 7 + [_I] * 7 + [_P],
     "fp_score_hypotheses": [_P] * 5 + [_I] * 3 + [_P],
+    "fp_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "fp_mm_bf16": [_P] * 3 + [_I] * 3 + [_P],
+    "fp_mm_int8": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,18 +69,29 @@ def library() -> ctypes.CDLL:
     for path in cu + cuh:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    so = _BUILD / f"libfoundpose_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    so = _BUILD / f"libfoundpose_kernels_{tag}.so"
     t0 = time.perf_counter()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        objs = [_BUILD / f"{path.stem}_{tag}.{os.getpid()}.o" for path in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(path)] for o, path in zip(objs, cu)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(f"== {path.name}\n{log}" for path, log in zip(cu, logs))
+        for cmd, proc in zip(cmds, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-            )
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+        for o in objs:
+            o.unlink()
         os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -13,6 +13,43 @@ def transform_points(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor
     return torch.einsum("...ij,...j->...i", matrix[..., :3, :3], points) + matrix[..., :3, 3]
 
 
+def normalized(v: torch.Tensor, eps: float = 5.43e-20) -> torch.Tensor:
+    """Unit-length copy of [..., 3] vectors, safe for near-zero input."""
+    return v / torch.clamp_min(torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True)), eps)
+
+
+def inverse_se3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of rigid transform(s) [..., 4, 4]."""
+    r_t = m[..., :3, :3].transpose(-1, -2)
+    return as_4x4_rt(r_t, -torch.einsum("...ij,...j->...i", r_t, m[..., :3, 3]))
+
+
+def from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rotation taking direction `a` to direction `b` (Rodrigues form, with
+    the JAX package's guard at sin ~ 0)."""
+    a = normalized(a)
+    b = normalized(b)
+    v = torch.cross(a.expand_as(b), b, dim=-1)
+    s2 = torch.sum(v * v, dim=-1)[..., None, None]
+    c = torch.sum(a * b, dim=-1)[..., None, None]
+    vm = skew_matrix(v)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand(vm.shape)
+    return eye + vm + (vm @ vm) * (1.0 - c) / torch.clamp_min(s2, 1e-15)
+
+
+def gen_look_at_matrix(
+    orig_camera_from_world: torch.Tensor, center_in_world: torch.Tensor
+) -> torch.Tensor:
+    """Re-aims camera(s) so the +Z axis passes through `center_in_world`;
+    returns the new camera_from_world [..., 4, 4] (camera angle 0)."""
+    center_local = transform_points(orig_camera_from_world, center_in_world)
+    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=center_local.dtype, device=center_local.device)
+    delta_r_local = from_two_vectors(z_axis, normalized(center_local))
+    orig_world_from_camera = inverse_se3(orig_camera_from_world)
+    rot = orig_world_from_camera[..., :3, :3] @ delta_r_local
+    return inverse_se3(as_4x4_rt(rot, orig_world_from_camera[..., :3, 3]))
+
+
 def skew_matrix(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> [..., 3, 3] cross-product matrix."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]

@@ -6,9 +6,13 @@ state-dict names (patch_embed.proj.*, cls_token, pos_embed,
 register_tokens, blocks.{i}.norm1|attn.qkv|attn.proj|ls1.gamma|norm2|
 mlp.fc1|mlp.fc2|ls2.gamma, norm.*), so an official checkpoint loads with
 `load_state_dict`. Parameters stay f32; each forward casts them to the
-images' dtype, as the JAX package does. Every transformer block runs through
-ops/vit_block.fused_vit_block: the CUDA kernel on the GPU, its plain twin on
-the CPU. Public functions keep the JAX package's NHWC image layout.
+images' dtype, as the JAX package does. With `use_fused_block` each
+transformer block runs through ops/vit_block.fused_vit_block (one CUDA
+kernel sequence, bf16 only); without it, the unfused block runs its dense
+products with torch.matmul and its attention through
+ops/attention.fused_attention_bhtd. Either way the CUDA kernel runs on the
+GPU and its plain twin on the CPU. Public functions keep the JAX package's
+NHWC image layout.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from foundpose_torch.ops.vit_block import fused_vit_block, layer_norm
+from foundpose_torch.ops.attention import fused_attention_bhtd
+from foundpose_torch.ops.vit_block import fused_vit_block, gelu, layer_norm
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -52,8 +57,12 @@ class DinoV2Config:
     apply_norm: bool = True
     # tanh GELU instead of the exact erf GELU (the shipped configs set it).
     approx_gelu: bool = False
-    # "column" subtracts the per-query max; "capped" skips the max and caps
-    # p = min(exp2(l), 1e30) (see ops/vit_block.py).
+    # The whole block as one kernel sequence (ops/vit_block.py). Off: the
+    # unfused block, whose attention always runs through ops/attention (the
+    # JAX package's `use_pallas_attention` has no counterpart here).
+    use_fused_block: bool = False
+    # Fused block only: "column" subtracts the per-query max; "capped" skips
+    # the max and caps p = min(exp2(l), 1e30) (see ops/vit_block.py).
     softmax_stabilizer: str = "column"
 
     @property
@@ -252,14 +261,24 @@ def embed_tokens(
     cfg = model.cfg
     dt = images_nhwc.dtype
     b, ih, iw, _ = images_nhwc.shape
-    gh = 1 + (ih - cfg.patch_size) // cfg.stride
-    gw = 1 + (iw - cfg.patch_size) // cfg.stride
+    p = cfg.patch_size
+    gh = 1 + (ih - p) // cfg.stride
+    gw = 1 + (iw - p) // cfg.stride
     conv = model.patch_embed.proj
-    x = F.conv2d(
-        images_nhwc.permute(0, 3, 1, 2), conv.weight.to(dt), stride=cfg.stride
-    )  # [B, D, gh, gw]
-    x = x.permute(0, 2, 3, 1) + conv.bias.to(dt)
-    x = x.reshape(b, gh * gw, cfg.embed_dim)
+    if cfg.stride == p:
+        # Non-overlapping patches: one matmul over the unfolded image rather
+        # than a cuDNN convolution, which would round f32 to TF32 under
+        # cuDNN's default switch.
+        patches = images_nhwc[:, : gh * p, : gw * p].reshape(b, gh, p, gw, p, 3)
+        patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * 3)
+        w = conv.weight.to(dt).permute(0, 2, 3, 1).reshape(cfg.embed_dim, p * p * 3)
+        x = patches @ w.t() + conv.bias.to(dt)
+    else:
+        x = F.conv2d(
+            images_nhwc.permute(0, 3, 1, 2), conv.weight.to(dt), stride=cfg.stride
+        )  # [B, D, gh, gw]
+        x = x.permute(0, 2, 3, 1) + conv.bias.to(dt)
+        x = x.reshape(b, gh * gw, cfg.embed_dim)
     cls = model.cls_token.to(dt).expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
     pos = interpolate_pos_embed(model.pos_embed, (gh, gw), cfg.pos_grid)
@@ -270,13 +289,36 @@ def embed_tokens(
     return x, (gh, gw)
 
 
+def unfused_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config) -> torch.Tensor:
+    """The JAX package's unfused pre-norm block over x [B, T, D] with one
+    layer's weights `p` (Block.kernel_params): head-major qkv, attention
+    through ops/attention, proj, layer-scaled residuals, f32 LayerNorm
+    statistics, exact or tanh GELU."""
+    b, t, d = x.shape
+    eps = cfg.layer_norm_eps
+    xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
+    qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"])
+    qkv = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4).contiguous()
+    attn = fused_attention_bhtd(qkv[0], qkv[1], qkv[2])  # [B, H, T, Dh]
+    attn = F.linear(attn.transpose(1, 2).reshape(b, t, d), p["proj_weight"], p["proj_bias"])
+    x = x + p["ls1"] * attn
+    xn = layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
+    h = gelu(F.linear(xn, p["fc1_weight"], p["fc1_bias"]), cfg.approx_gelu)
+    return x + p["ls2"] * F.linear(h, p["fc2_weight"], p["fc2_bias"])
+
+
 def run_blocks(model: DinoV2, x: torch.Tensor, upto: int) -> torch.Tensor:
-    """Runs blocks [0, upto) through the block kernel (or its CPU twin)."""
+    """Runs blocks [0, upto): the fused block kernel or the unfused block,
+    by `cfg.use_fused_block` (CPU tensors take the plain twins)."""
     cfg = model.cfg
     for blk in list(model.blocks)[:upto]:
+        p = blk.kernel_params(x.dtype)
+        if not cfg.use_fused_block:
+            x = unfused_block(x, p, cfg)
+            continue
         x = fused_vit_block(
             x,
-            blk.kernel_params(x.dtype),
+            p,
             seq_len=x.shape[1],
             num_heads=cfg.num_heads,
             head_dim=cfg.head_dim,

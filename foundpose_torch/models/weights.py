@@ -17,7 +17,25 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from foundpose_torch.models.dinov2 import DinoV2Config
+from foundpose_torch.models.dinov2 import DinoV2, DinoV2Config
+
+
+def load_checkpoint(path: str, cfg: DinoV2Config) -> DinoV2:
+    """DinoV2 (eval mode, on the CPU) from an official-name `.pth` state
+    dict, bare or under a "model" key. Every parameter of `cfg`'s model must
+    be present; the checkpoint may also hold `mask_token`."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in state and isinstance(state["model"], dict):
+        state = state["model"]
+    model = DinoV2(cfg)
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    unexpected = [k for k in unexpected if k != "mask_token"]
+    if missing or unexpected:
+        raise ValueError(
+            f"checkpoint {path} does not fit {cfg.variant}: missing {missing}, "
+            f"unexpected {unexpected}"
+        )
+    return model.eval()
 
 
 def state_dict_from_jax_params(

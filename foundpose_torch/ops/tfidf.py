@@ -60,8 +60,8 @@ def calc_tfidf(
     ids = word_ids.reshape(*word_ids.shape[:-2], n * k).long()
     idfs = word_idfs.float()
     safe_idfs = torch.where(torch.isfinite(idfs), idfs, torch.zeros_like(idfs))
-    contrib = tf * safe_idfs[ids]
-    out = torch.zeros(*tf.shape[:-1], idfs.shape[0], device=tf.device)
+    contrib = tf * torch.gather(safe_idfs.expand(*ids.shape[:-1], -1), -1, ids)
+    out = torch.zeros(*tf.shape[:-1], idfs.shape[-1], device=tf.device)
     return out.scatter_add_(-1, ids, contrib)
 
 
@@ -151,9 +151,11 @@ def tfidf_retrieve(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-N templates for each query set [..., Q, D].
 
-    Returns (template_ids [..., top_n], scores [..., top_n]) by descending
-    cosine similarity; equal similarities (masked templates at -inf
-    included) keep the lower template index first, as lax.top_k does.
+    The tables (words [W, D], idfs [W], descriptors [T, W], mask [T]) may
+    carry the query sets' leading axes, one table per set (mixed-object
+    batches). Returns (template_ids [..., top_n], scores [..., top_n]) by
+    descending cosine similarity; equal similarities (masked templates at
+    -inf included) keep the lower template index first, as lax.top_k does.
     """
     word_ids, word_dists = assign_words(
         query_features, word_centroids, config.knn_k, config.metric
@@ -171,7 +173,7 @@ def tfidf_retrieve(
     tn = descs / torch.clamp_min(
         torch.sqrt(torch.sum(descs * descs, dim=-1, keepdim=True)), 1e-12
     )
-    sims = torch.einsum("...w,tw->...t", qn, tn)
+    sims = torch.einsum("...w,...tw->...t", qn, tn)
     if template_mask is not None:
         sims = torch.where(template_mask, sims, -torch.inf)
     scores, ids = torch.sort(sims, dim=-1, descending=True, stable=True)

@@ -6,9 +6,9 @@ foundpose_tpu/pipeline/inference.py).
     LO + LM on the winner -> world-frame poses
 
 Each stage is a plain function over the whole crop batch. On a GPU the
-three kernels of the path run (ops/vit_block, ops/buddies_kernel,
-pose/pnp.score_hypotheses); on a CPU their twins do. The tensors' device
-decides.
+kernels of the configured path run (ops/vit_block or ops/attention,
+ops/buddies_kernel on the approx-top-k path, pose/pnp.score_hypotheses); on
+a CPU their twins do. The tensors' device decides.
 
 Randomness: RANSAC draws come from `draws` [B, top_n, H, 6] when given,
 else from `generator`. The JAX package derives them from one PRNG key; the
@@ -90,13 +90,15 @@ def inference_config_from_opts(opts: Dict[str, Any]) -> InferenceConfig:
 
 def vit_config_from_opts(opts: Dict[str, Any]) -> dinov2.DinoV2Config:
     """DinoV2Config from an `infer_opts` dict: the extractor name, the GELU
-    form and `vit_overrides`. The JAX package's kernel switches
-    (use_pallas_attention, use_fused_block) have no counterpart: every block
-    runs through ops/vit_block."""
+    form, `use_fused_block` (JAX default False) and `vit_overrides`.
+    `use_pallas_attention` has no counterpart: the unfused block always
+    runs its attention through ops/attention. The fused block's CUDA kernel
+    takes bf16 only, so a fused f32 configuration raises on the GPU."""
     o = opts.get("infer_opts", opts)
     cfg = dataclasses.replace(
         dinov2.parse_model_name(o["extractor_name"]),
         approx_gelu=bool(o.get("approx_gelu", False)),
+        use_fused_block=bool(o.get("use_fused_block", False)),
     )
     return dataclasses.replace(cfg, **(o.get("vit_overrides") or {}))
 

@@ -10,6 +10,7 @@ argmin and a stable sort in plain PyTorch.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -78,6 +79,7 @@ def establish_correspondences_batch(
     bank_mask: torch.Tensor,
     top_k: int,
     approx_topk: bool = False,
+    obj_idx: Optional[torch.Tensor] = None,
 ) -> Correspondences:
     """Buddy correspondences for all crops x retrieved templates.
 
@@ -85,12 +87,15 @@ def establish_correspondences_batch(
         query_points: [Q, 2] shared grid.
         query_feats: [B, Q, D]; query_mask: [B, Q] bool.
         template_ids/scores: [B, T'].
-        bank_feats/vertices/mask: [T, F, ...] per-template banks.
+        bank_feats/vertices/mask: [T, F, ...] per-template banks, or
+            [O, T, F, ...] stacked per object with `obj_idx` [B] giving
+            each crop's object.
     """
     tids = template_ids.long()
-    sel_feats = bank_feats[tids]  # [B, T', F, D]
-    sel_verts = bank_vertices[tids]
-    sel_mask = bank_mask[tids]
+    sel = tids if obj_idx is None else (obj_idx.long()[:, None], tids)
+    sel_feats = bank_feats[sel]  # [B, T', F, D]
+    sel_verts = bank_vertices[sel]
+    sel_mask = bank_mask[sel]
     qpts = query_points.float()
 
     if approx_topk:

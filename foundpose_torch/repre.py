@@ -72,6 +72,61 @@ class ObjectRepre:
         )
 
 
+def stack_repres(repres) -> ObjectRepre:
+    """One multi-object repre with a leading object axis on every tensor
+    field, ragged template counts, bank widths and flat feature counts
+    zero-padded; `template_mask` [O, T] marks the real templates. All repres
+    share the feature dim, the word count and the tf-idf config."""
+    t_max = max(r.template_descs.shape[0] for r in repres)
+    f_max = max(r.bank_feats.shape[1] for r in repres)
+    flat_max = max(r.feat_vectors.shape[0] for r in repres)
+
+    def stack(get, shape):
+        out = get(repres[0]).new_zeros((len(repres), *shape))
+        for i, r in enumerate(repres):
+            a = get(r)
+            out[(i, *(slice(0, s) for s in a.shape))] = a
+        return out
+
+    d = repres[0].feat_vectors.shape[1]
+    w = repres[0].word_centroids.shape[0]
+    tmask = torch.zeros(len(repres), t_max, dtype=torch.bool, device=repres[0].template_descs.device)
+    for i, r in enumerate(repres):
+        tmask[i, : r.template_descs.shape[0]] = True
+    cam = PinholeCamera(
+        f=stack(lambda r: r.template_cameras.f, (t_max, 2)),
+        c=stack(lambda r: r.template_cameras.c, (t_max, 2)),
+        T_world_from_eye=stack(lambda r: r.template_cameras.T_world_from_eye, (t_max, 4, 4)),
+        width=repres[0].template_cameras.width,
+        height=repres[0].template_cameras.height,
+    )
+    proj = None
+    if repres[0].raw_projector is not None:
+        proj = PCA(
+            mean=torch.stack([r.raw_projector.mean for r in repres]),
+            components=torch.stack([r.raw_projector.components for r in repres]),
+            explained_variance=torch.stack([r.raw_projector.explained_variance for r in repres]),
+            whiten=repres[0].raw_projector.whiten,
+        )
+    return ObjectRepre(
+        vertices=stack(lambda r: r.vertices, (flat_max, 3)),
+        feat_vectors=stack(lambda r: r.feat_vectors, (flat_max, d)),
+        feat_to_template_ids=stack(lambda r: r.feat_to_template_ids, (flat_max,)),
+        feat_mask=stack(lambda r: r.feat_mask.bool(), (flat_max,)),
+        word_centroids=stack(lambda r: r.word_centroids, (w, d)),
+        word_idfs=stack(lambda r: r.word_idfs, (w,)),
+        template_descs=stack(lambda r: r.template_descs, (t_max, w)),
+        bank_feats=stack(lambda r: r.bank_feats, (t_max, f_max, d)),
+        bank_vertices=stack(lambda r: r.bank_vertices, (t_max, f_max, 3)),
+        bank_mask=stack(lambda r: r.bank_mask.bool(), (t_max, f_max)),
+        template_cameras=cam,
+        raw_projector=proj,
+        template_mask=tmask,
+        tfidf_config=repres[0].tfidf_config,
+        extractor_name=repres[0].extractor_name,
+    )
+
+
 def build_padded_banks(
     feat_vectors: np.ndarray,
     vertices: np.ndarray,

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from foundpose_torch.benchmarks import micro_int8
 from foundpose_torch.ops import sampling
+from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
 from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
 from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain
 from foundpose_torch.pose import pnp
@@ -96,6 +98,59 @@ def test_score_kernel_matches_twin(dev):
     assert float(got.max()) > 0
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("tokens,seq_len", [(905, 905), (150, 141), (33, 33)])
+def test_attention_kernel_matches_twin(dev, dtype, tol, tokens, seq_len):
+    """Relative L2 error <= 1e-5 (f32) / 1e-2 (bf16) over all rows; T not a
+    multiple of any tile, keys past seq_len masked."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 3, tokens, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    q = q * 2
+    before = fused_attention_bhtd.launches
+    got = fused_attention_bhtd(q, k, v, seq_len=seq_len).float()
+    ref = attention_plain(q, k, v, seq_len=seq_len).float()
+    assert fused_attention_bhtd.launches == before + 1
+    assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < tol
+
+
+@pytest.mark.parametrize("dtype,tokens", [(torch.float32, 1408), (torch.bfloat16, 1088)])
+def test_attention_kernel_at_its_longest_sequence(dev, dtype, tokens):
+    """The longest T whose logits fit one block's shared memory."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(1, 2, tokens, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    got = fused_attention_bhtd(q, k, v).float()
+    ref = attention_plain(q, k, v).float()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < tol
+
+
+def test_unfused_vit_on_the_card_matches_the_cpu(dev):
+    """A small unfused f32 ViT (head_dim 64): card (attention kernel, full
+    f32 matmuls) vs CPU (twins), feature maps within 1e-4."""
+    from foundpose_torch.models import dinov2
+
+    cfg = dinov2.DinoV2Config(embed_dim=128, depth=2, num_heads=2, pos_grid=6, layer=1)
+    torch.manual_seed(0)
+    model = dinov2.DinoV2(cfg).eval()
+    imgs = torch.rand(2, 84, 84, 3, generator=torch.Generator().manual_seed(5))
+    ref = dinov2.extract_facet(model, imgs)["feature_maps"]
+    before = fused_attention_bhtd.launches
+    got = dinov2.extract_facet(model.to(dev), imgs.to(dev))["feature_maps"].cpu()
+    assert fused_attention_bhtd.launches == before + 2
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
+
+
+def test_probe_kernels_match_twins(dev):
+    """int8 -> int32 exact; bf16 -> f32 within relative L2 1e-5."""
+    ins = micro_int8.probe_inputs(dev, seed=1, shape=(2, 128, 96, 256))
+    a8, w8 = ins[torch.int8]
+    np.testing.assert_array_equal(micro_int8.mm_int8(a8, w8).cpu().numpy(),
+                                  micro_int8.mm_plain(a8, w8).cpu().numpy())
+    abf, wbf = ins[torch.bfloat16]
+    got, ref = micro_int8.mm_bf16(abf, wbf), micro_int8.mm_plain(abf, wbf)
+    assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < 1e-5
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     p = block_weights(torch.Generator().manual_seed(3), 128, 512, dev)
     with pytest.raises(ValueError):
@@ -108,3 +163,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cycle_distances(torch.zeros(1, 36, 16, device=dev), torch.ones(1, 36, dtype=torch.bool, device=dev),
                         grid, torch.zeros(1, 1, 8, 16, device=dev),
                         torch.ones(1, 1, 8, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):  # head_dim 32
+        fused_attention_bhtd(*(torch.zeros(1, 2, 40, 32, device=dev) for _ in range(3)))
+    with pytest.raises(RuntimeError):  # the kernel refuses T > 1408: shared memory
+        fused_attention_bhtd(*(torch.zeros(1, 1, 1409, 64, device=dev) for _ in range(3)))
+    with pytest.raises(ValueError):  # rows not a multiple of 128
+        micro_int8.mm_int8(torch.zeros(100, 64, dtype=torch.int8, device=dev),
+                           torch.zeros(64, 128, dtype=torch.int8, device=dev))

@@ -42,7 +42,27 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 17
+    assert int(proc.stdout.strip()) >= 29
+
+
+@pytest.mark.parametrize("module", [
+    "foundpose_torch.cameras", "foundpose_torch.engine", "foundpose_torch.ops.warp",
+    "foundpose_torch.ops.attention", "foundpose_torch.pipeline.multi_object",
+    "foundpose_torch.benchmarks.micro_int8",
+])
+def test_serving_modules_import_with_jax_blocked(module):
+    """Each module of the serving slice imports on its own with jax, flax
+    and foundpose_tpu blocked."""
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'flax', 'foundpose_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"importlib.import_module({module!r})\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize("isolated", [False, True])
@@ -76,6 +96,25 @@ def test_inference_config_from_lmo_json():
     vit = inference.vit_config_from_opts(opts)
     assert (vit.embed_dim, vit.layer, vit.num_register_tokens) == (384, 9, 4)
     assert vit.approx_gelu and vit.softmax_stabilizer == "capped"
+    assert vit.use_fused_block
     with open(os.path.join(ROOT, "configs", "infer", "lmo_exact.json")) as f:
-        exact = inference.inference_config_from_opts(json.load(f))
+        exact_opts = json.load(f)
+    exact = inference.inference_config_from_opts(exact_opts)
     assert exact.pnp_ransac_iter >= cfg.pnp_ransac_iter
+
+
+def test_lmo_exact_json_resolves_to_the_unfused_f32_path():
+    """configs/infer/lmo_exact.json: unfused ViT-S/14-reg at full width,
+    f32, erf GELU; exact top-k, 400 RANSAC hypotheses."""
+    from foundpose_torch.pipeline import inference
+
+    import torch
+
+    with open(os.path.join(ROOT, "configs", "infer", "lmo_exact.json")) as f:
+        opts = json.load(f)
+    cfg = inference.inference_config_from_opts(opts)
+    vit = inference.vit_config_from_opts(opts)
+    assert not vit.use_fused_block and not vit.approx_gelu
+    assert (vit.embed_dim, vit.num_heads, vit.mlp_hidden, vit.layer) == (384, 6, 1536, 9)
+    assert cfg.compute_dtype == torch.float32 and not cfg.approx_topk
+    assert (cfg.top_n_templates, cfg.top_k_buddies, cfg.pnp_ransac_iter) == (5, 300, 400)

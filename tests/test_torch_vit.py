@@ -113,6 +113,56 @@ def test_extract_facet_matches_jax_unfused(rng, facet):
     np.testing.assert_allclose(out["cls_tokens"].numpy(), np.asarray(ref["cls_tokens"]), atol=1e-4)
 
 
+def test_unfused_vit_matches_jax_pallas_attention(rng):
+    """Tiny unfused ViT (64 wide, depth 2, 84 px), f32: the port's unfused
+    block (attention through ops/attention) == the JAX package's with the
+    Pallas attention kernel in interpret mode, atol 1e-4 as
+    tests/test_attention.py."""
+    kw = tiny_cfg(depth=2, layer=1)
+    jcfg, params = jax_params(kw)
+    imgs = rng.uniform(size=(1, 84, 84, 3)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = j_dinov2.extract_facet(
+            params, dataclasses.replace(jcfg, use_pallas_attention=True), jnp.asarray(imgs)
+        )
+    out = t_dinov2.extract_facet(torch_model(kw, params), torch.from_numpy(imgs))
+    np.testing.assert_allclose(
+        out["feature_maps"].numpy(), np.asarray(ref["feature_maps"]), atol=1e-4
+    )
+
+
+def test_exact_config_runs_the_unfused_block(rng, monkeypatch):
+    """lmo_exact.json's switches (no fused block, f32) resolve to the
+    unfused block, which never reaches the fused-block kernel (bf16 only on
+    the card); lmo.json keeps the fused block. A tiny f32 model under the
+    exact switches matches the JAX package's unfused path, atol 1e-4."""
+    from foundpose_torch.pipeline import inference as t_inf
+
+    tiny = {k: v for k, v in tiny_cfg(depth=2, layer=1).items() if k != "variant"}
+    name = "dinov2_version=vits14-reg_stride=14_facet=token_layer=9_norm=1"
+    exact = t_inf.vit_config_from_opts(
+        {"infer_opts": {"extractor_name": name, "use_pallas_attention": True, "vit_overrides": tiny}}
+    )
+    fused = t_inf.vit_config_from_opts(
+        {"infer_opts": {"extractor_name": name, "use_fused_block": True}}
+    )
+    assert not exact.use_fused_block and fused.use_fused_block
+
+    def no_fused_block(*args, **kwargs):
+        raise AssertionError("the exact configuration reached the fused block")
+
+    monkeypatch.setattr(t_dinov2, "fused_vit_block", no_fused_block)
+    jcfg, params = jax_params(tiny_cfg(depth=2, layer=1))
+    model = t_dinov2.DinoV2(exact)
+    model.load_state_dict(state_dict_from_jax_params(params, exact))
+    imgs = rng.uniform(size=(2, 84, 84, 3)).astype(np.float32)
+    ref = j_dinov2.extract_facet(params, jcfg, jnp.asarray(imgs))
+    out = t_dinov2.extract_facet(model, torch.from_numpy(imgs))
+    np.testing.assert_allclose(
+        out["feature_maps"].numpy(), np.asarray(ref["feature_maps"]), atol=1e-4
+    )
+
+
 @pytest.mark.parametrize("grid", [(7, 7), (5, 9), (6, 6)])
 def test_interpolate_pos_embed_matches_jax(rng, grid):
     pos = rng.normal(size=(1, 1 + 36, 16)).astype(np.float32)
