@@ -73,9 +73,12 @@ BUDDIES_Q2O_AGREE = 0.99  # share of valid queries with equal q2o
 BUDDIES_CD_ATOL = 1e-4
 SCORE_AGREE = 0.995  # share of hypotheses with equal counts
 SCORE_MAX_DIFF = 1.0
-# Attention kernel vs twin, relative L2: f32 differs only in summation
-# order; bf16 also in where p / sum rounds.
-ATTN_REL_L2 = {"f32": 1e-5, "bf16": 1e-2}
+# Attention kernel vs twin, relative L2: f32 differs in summation order
+# and divides by the sum after the value product (the same rounding-order
+# change, since the f32 weights are never cast); bf16 casts p / sum before
+# the value product as the twin does, so only a weight whose f32 value
+# differs near a rounding boundary can round to another bf16.
+ATTN_REL_L2 = {"f32": 1e-5, "bf16": 1e-3}
 PROBE_BF16_REL_L2 = 1e-5  # int8 must be exact
 
 # Phase 3 serves windows of WARM_WINDOW requests until two window medians in
@@ -396,8 +399,8 @@ def probe_vs_twin(torch, device):
         rel = float(torch.linalg.vector_norm((got - ref).float()) / torch.linalg.vector_norm(ref.float()))
         if int8:
             library = lambda: torch._int_mm(a.view(b * t, d), w)
-        else:
-            library = lambda: torch.matmul(a, w)
+        else:  # f32 output, as the kernel writes
+            library = lambda: torch.mm(a.view(b * t, d), w, out_dtype=torch.float32)
         bms, by = micro_int8.bound_ms(b * t, d, h, dt)
         name = "int8" if int8 else "bf16"
         res[name] = dict(
@@ -409,7 +412,7 @@ def probe_vs_twin(torch, device):
         r = res[name]
         log(2, f"probe GEMM {name} [{b}, {t}, {d}] x [{d}, {h}]: max abs err {err:.3g}, rel L2 "
                f"{rel:.2e}; kernel {r['ms']:.4f} ms vs twin {r['plain_ms']:.3f} ms vs "
-               f"{'torch._int_mm' if int8 else 'torch.matmul (bf16 out)'} {r['library_ms']:.4f} ms; "
+               f"{'torch._int_mm' if int8 else 'torch.mm (f32 out)'} {r['library_ms']:.4f} ms; "
                f"bound {bms:.4f} ms ({by})")
         del got, ref
     check(res["int8"]["max_abs_err"] == 0.0, "int8 probe GEMM is not exact")

@@ -3,10 +3,13 @@ benchmarks/micro_int8.py, which timed the TPU's int8 matmul mode).
 
     python -m foundpose_torch.benchmarks.micro_int8     # needs a CUDA GPU
 
-Both products are hand-written tensor-core kernels (csrc/micro_mm.cu) at
-the TPU probe's shapes: [64, 912, 384] x [384, 1536], bf16 -> f32 and
-int8 -> int32. Each wrapper has a plain twin and a launch counter. At these
-shapes the 358 MB 4-byte output, not the arithmetic, bounds both kernels.
+Both products are one hand-written Hopper GEMM (csrc/micro_mm.cu: TMA
+loads, wgmma, persistent blocks, TMA stores) at the TPU probe's shapes:
+[64, 912, 384] x [384, 1536], bf16 -> f32 and int8 -> int32. Each wrapper
+has a plain twin and a launch counter. At these shapes the 358 MB 4-byte
+output, not the arithmetic, bounds both kernels. The kernel takes rows and
+H in multiples of 128 and D rows of 16 to 768 bytes (D <= 384 in bf16,
+<= 768 in int8): each block keeps a [D, 128] panel of w in shared memory.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def _mm(a: torch.Tensor, w: torch.Tensor, name: str, dtype: torch.dtype, out_dty
     if a.shape[-1] != k:
         raise ValueError(f"{name}: a {tuple(a.shape)} does not match w {tuple(w.shape)}")
     m = a.numel() // k
-    if m % 128 or n % 128 or k % 32:
-        raise ValueError(f"{name}: needs rows and H multiples of 128 and D a multiple of 32")
+    row_bytes = k * a.element_size()
+    if m % 128 or n % 128 or row_bytes % 16 or row_bytes > 768:
+        raise ValueError(f"{name}: needs rows and H multiples of 128, and D of 16 to 768 bytes "
+                         "in steps of 16 (the kernel keeps a [D, 128] panel of w in shared memory)")
     dev = _kernels.require_cuda(name, a, w)
     if a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")

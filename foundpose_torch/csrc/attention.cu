@@ -8,8 +8,6 @@
 //   l_j = (q . k_j) * Dh^-0.5 in f32 for keys j < seq_len (the rest masked),
 //   p_j = exp(l_j - max_j l_j) (base e), s = sum_j p_j in f32,
 //   w_j = p_j / s cast to the input dtype, out = sum_j w_j v_j in f32, cast.
-// The normalizer divides p BEFORE the value product, as the TPU kernel does
-// (unlike csrc/vit_block.cu, which multiplies by 1/s afterwards).
 //
 // What bounds it on the H100: at the unfused ViT-S path (16 crops x 6
 // heads, 905 tokens, Dh 64) one layer is 2 x 96 x 905^2 x 64 x 2 = 20.1
@@ -18,272 +16,401 @@
 // the inputs to 10 mantissa bits), so the bound is the 67 TFLOP/s of f32
 // FMA: ~0.30 ms. In bf16 the tensor cores bound it at ~20 us.
 //
-// What the design does about it: one block per (32-query tile, b * h)
-// keeps that tile's [32, T] f32 logits in shared memory (~131 KB at T =
-// 905), so the exact max-subtracted softmax is formed in one pass over the
-// keys, the weights are normalized before the value product as the
-// contract demands, and no [T, T] tensor reaches device memory. K and then
-// V stream through shared memory in tiles. f32: SIMT FMA, each thread a
-// 4 x 4 (logits) or 2 x 4 (output) register tile fed by float4 shared
-// loads. bf16: nvcuda::wmma 16x16x16 with f32 accumulation. T needs no
-// padding: staged rows past T (or keys past seq_len) are zero, and output
-// rows past T are never written. This is the simple first form: one block
-// per SM fits at these sizes, and nothing overlaps loads with math.
+// What the design does about it. Neither kernel keeps logits resident, so
+// T is not limited by shared memory, and both stream K and V in 64-key
+// tiles through a double-buffered cp.async ring (zero fill past seq_len
+// and T), loading the next tile while the current one is multiplied.
+//
+// f32 (SIMT FMA, 64 queries x 128 threads, 3 blocks per SM): one pass with
+// an online softmax. Each thread owns a 4 x 8 register tile of logits (4
+// rows, keys tx + 8j so neighbouring threads read neighbouring keys) fed by
+// float4 shared loads along Dh, keeps a running row max and sum, rescales
+// its 4 x 8 output tile by exp(m_old - m_new), and divides by the sum once
+// at the end. The weights go through shared memory transposed, so the
+// value product reads one float4 of weights and two of V per 32 FMAs.
+// Dividing after the value product keeps the contract in f32: there the
+// cast of p / s to the input dtype is the identity, so (sum_j p_j v_j) / s
+// and sum_j (p_j / s) v_j differ in rounding order only, like a different
+// summation order (the twin's relative L2 bound, 1e-5, holds).
+//
+// bf16 (mma.sync m16n8k16, 64 queries x 4 warps, 37 KB of shared memory, 6
+// blocks per SM):
+// the contract casts the weights p / s to bf16 BEFORE the value product,
+// which an online rescale would not reproduce, so the kernel makes two
+// passes over K. Pass 1: S = Q K^T on the tensor cores, a running row max
+// and sum. Pass 2, 16 keys at a time: S again, w = bf16(exp(s - m) * (1 /
+// s)) in registers (within one f32 ulp of p / s before the cast), and O +=
+// w V, with the accumulator fragments of S repacked as the A fragments of
+// the value product, so the weights never touch shared memory. 1.5x the
+// products of one pass. The kernel is bound by issuing instructions and by
+// latency, not by the tensor cores, so the softmax is kept to one FFMA and
+// one SFU ex2 per logit (the scale is folded with log2 e into the FFMA),
+// and registers and shared memory are kept low enough for 6 blocks per SM
+// (the passes are separate loops, so O and a whole tile of S are never
+// live together; the query tile is staged in a V buffer pass 1 leaves
+// free).
+//
+// Both kernels take exp from the SFU's ex2 (relative error about 2^-22);
+// in f32 the argument is (s - m) * log2 e, the twin's exact difference
+// rounded once more.
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int DH = 64;    // head dim
+constexpr int BQ = 64;    // query rows per block
+constexpr int BKV = 64;   // keys per tile
+constexpr int F_THREADS = 128, LDF = DH + 4;  // f32: floats per shared row
+constexpr int B_THREADS = 128, LDH = DH + 8;  // bf16: elements per shared row (144 bytes)
+constexpr int B_BLOCKS = 6;                    // bf16: blocks per SM (37 KB of shared memory each)
+constexpr size_t F32_SMEM = 4 * BQ * LDF * sizeof(float);
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int BQ = 32;  // query rows per block
-constexpr int DH = 64;  // head dim
-constexpr int BK_F32 = 128, F32_THREADS = 256, LDF = DH + 4;
-constexpr int BK_BF = 64, BF_THREADS = 128, LDH = DH + 8, LDO = DH + 4;
-constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// 2^x by the SFU (relative error below 2^-22; -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void store_weight(float* p, float w) { *p = w; }
-__device__ __forceinline__ void store_weight(bf16* p, float w) { *p = fp::f2bf(w); }
-
-// Softmax of the resident logits S [BQ, lds], one warp per row: keys
-// < seq_len give w = exp(l - max) / sum, keys in [seq_len, kv_pad) give 0.
-// W may alias S (f32): each lane reads and writes only its own entries.
-template <typename W>
-__device__ void softmax_rows(float* S, int lds, W* Wt, int ldw, int seq_len, int kv_pad) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x / 32;
-  for (int r = threadIdx.x / 32; r < BQ; r += nwarps) {
-    float* row = S + static_cast<size_t>(r) * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < seq_len; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int j = lane; j < seq_len; j += 32) {
-      const float p = expf(row[j] - m);
-      row[j] = p;
-      s += p;
-    }
-    s = fp::warp_sum(s);
-    W* wrow = Wt + static_cast<size_t>(r) * ldw;
-    for (int j = lane; j < kv_pad; j += 32) store_weight(wrow + j, j < seq_len ? row[j] / s : 0.f);
-  }
-}
-
-// Stages rows [r0, r0 + rows) of a [*, DH] matrix into smem with leading
-// dimension ld; rows at or past `limit` are zero. VEC elements per load.
-template <typename T, typename V>
-__device__ void stage_rows(const T* __restrict__ src, T* dst, int ld, int r0, int rows, int limit) {
-  constexpr int VEC = sizeof(V) / sizeof(T);
-  for (int i = threadIdx.x; i < rows * DH / VEC; i += blockDim.x) {
-    const int r = i / (DH / VEC), c = (i % (DH / VEC)) * VEC;
-    V val = {};
-    if (r0 + r < limit) val = *reinterpret_cast<const V*>(src + static_cast<size_t>(r0 + r) * DH + c);
-    *reinterpret_cast<V*>(dst + r * ld + c) = val;
+// Rows [r0, r0 + 64) of a [*, 64] matrix into shared memory (leading
+// dimension ld elements) by cp.async; rows at or past `limit` are zero.
+template <typename T, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int r0, int limit) {
+  constexpr int VEC = 16 / sizeof(T), CHUNKS = DH / VEC;
+  for (int i = threadIdx.x; i < BKV * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+    const bool ok = r0 + r < limit;
+    fp::cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(r0 + r) * DH + c : src, ok);
   }
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT FMA.
+// f32: SIMT FMA, one pass, online softmax. Thread (ty, tx) = (tid / 8, tid %
+// 8) owns rows ty + 16a (a < 4), keys tx + 8j (j < 8) of each logit tile and
+// dims 4tx .. 4tx + 3, 32 + 4tx .. 32 + 4tx + 3 of the output rows.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(F32_THREADS)
+__global__ void __launch_bounds__(F_THREADS, 3)
     attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out, int T,
                          int seq_len, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lds = round_up(T, BK_F32) + 1;
-  const int kv_pad = round_up(seq_len, BK_F32);
-  float* Qs = reinterpret_cast<float*>(smem);                       // [BQ][LDF]
-  float* KV = Qs + fp::align128(BQ * LDF * 4) / 4;                   // [BK_F32][LDF]
-  float* S = KV + fp::align128(BK_F32 * LDF * 4) / 4;                // [BQ][lds]
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LDF]
+  float* Pt = Qs + BQ * LDF;                    // weights, [key][4 ty + a]
+  float* Ks = Pt + BKV * LDF;                   // [BKV][LDF]
+  float* Vs = Ks + BKV * LDF;                   // [BKV][LDF]
   const size_t base = static_cast<size_t>(blockIdx.y) * T * DH;
   const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  stage_rows<float, float4>(q + base, Qs, LDF, q0, BQ, T);
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int ntiles = (seq_len + BKV - 1) / BKV;
 
-  // Logits: thread -> rows tr + 8a (a < 4) x keys tc + 32i (i < 4).
-  const int tr = tid / 32, tc = tid % 32;
-  for (int k0 = 0; k0 < seq_len; k0 += BK_F32) {
+  load_tile<float, LDF, F_THREADS>(Qs, q + base, q0, T);
+  load_tile<float, LDF, F_THREADS>(Ks, k + base, 0, seq_len);
+  fp::cp_async_commit();
+
+  float o[4][8], m[4], l[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[a][e] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BKV;
+    load_tile<float, LDF, F_THREADS>(Vs, v + base, k0, seq_len);
+    fp::cp_async_commit();
+    fp::cp_async_wait<1>();  // Q and this K tile
     __syncthreads();
-    stage_rows<float, float4>(k + base, KV, LDF, k0, BK_F32, seq_len);
-    __syncthreads();
-    float acc[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = *reinterpret_cast<const float4*>(Qs + (tr + 8 * a) * LDF + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kb[i] = *reinterpret_cast<const float4*>(KV + (tc + 32 * i) * LDF + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float s = acc[a][i];
-          s = fmaf(qa[a].x, kb[i].x, s);
-          s = fmaf(qa[a].y, kb[i].y, s);
-          s = fmaf(qa[a].z, kb[i].z, s);
-          acc[a][i] = fmaf(qa[a].w, kb[i].w, s);
-        }
-    }
+
+    float s[4][8];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) S[(tr + 8 * a) * lds + k0 + tc + 32 * i] = acc[a][i] * scale;
-  }
-  __syncthreads();
-  softmax_rows<float>(S, lds, S, lds, seq_len, kv_pad);
-
-  // Output: thread -> rows orow, orow + 16 x dims oc .. oc + 3.
-  const int orow = tid / 16, oc = (tid % 16) * 4;
-  float4 o[2] = {};
-  for (int k0 = 0; k0 < seq_len; k0 += BK_F32) {
-    __syncthreads();
-    stage_rows<float, float4>(v + base, KV, LDF, k0, BK_F32, seq_len);
-    __syncthreads();
-    const int kn = min(BK_F32, seq_len - k0);
-    for (int j = 0; j < kn; ++j) {
-      const float4 vv = *reinterpret_cast<const float4*>(KV + j * LDF + oc);
+      for (int j = 0; j < 8; ++j) s[a][j] = 0.f;
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const float w = S[(orow + 16 * a) * lds + k0 + j];
-        o[a].x = fmaf(w, vv.x, o[a].x);
-        o[a].y = fmaf(w, vv.y, o[a].y);
-        o[a].z = fmaf(w, vv.z, o[a].z);
-        o[a].w = fmaf(w, vv.w, o[a].w);
+    for (int d = 0; d < DH; d += 4) {
+      float4 qa[4], kb[8];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * a) * LDF + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * j) * LDF + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float t = s[a][j];
+          t = fmaf(qa[a].x, kb[j].x, t);
+          t = fmaf(qa[a].y, kb[j].y, t);
+          t = fmaf(qa[a].z, kb[j].z, t);
+          s[a][j] = fmaf(qa[a].w, kb[j].w, t);
+        }
+    }
+
+    // Online softmax; a row's 64 keys live in the 8 lanes of one ty.
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[a][j] = k0 + tx + 8 * j < seq_len ? s[a][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[a][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[a], mx);  // finite: every tile holds a key < seq_len
+      const float alpha = ex2((m[a] - m_new) * LOG2E);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[a][j] = ex2((s[a][j] - m_new) * LOG2E);
+        sum += s[a][j];
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[a] = l[a] * alpha + sum;
+      m[a] = m_new;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[a][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(Pt + (tx + 8 * j) * LDF + 4 * ty) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();  // K tile consumed, weights complete
+
+    if (it + 1 < ntiles) load_tile<float, LDF, F_THREADS>(Ks, k + base, k0 + BKV, seq_len);
+    fp::cp_async_commit();
+    fp::cp_async_wait<1>();  // this V tile
+    __syncthreads();
+
+#pragma unroll 8
+    for (int j = 0; j < BKV; ++j) {
+      const float4 w = *reinterpret_cast<const float4*>(Pt + j * LDF + 4 * ty);
+      const float4 va = *reinterpret_cast<const float4*>(Vs + j * LDF + 4 * tx);
+      const float4 vb = *reinterpret_cast<const float4*>(Vs + j * LDF + 32 + 4 * tx);
+      const float wa[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        o[a][0] = fmaf(wa[a], va.x, o[a][0]);
+        o[a][1] = fmaf(wa[a], va.y, o[a][1]);
+        o[a][2] = fmaf(wa[a], va.z, o[a][2]);
+        o[a][3] = fmaf(wa[a], va.w, o[a][3]);
+        o[a][4] = fmaf(wa[a], vb.x, o[a][4]);
+        o[a][5] = fmaf(wa[a], vb.y, o[a][5]);
+        o[a][6] = fmaf(wa[a], vb.z, o[a][6]);
+        o[a][7] = fmaf(wa[a], vb.w, o[a][7]);
       }
     }
+    __syncthreads();  // weights and V tile consumed
   }
+
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int row = q0 + orow + 16 * a;
-    if (row < T) *reinterpret_cast<float4*>(out + base + static_cast<size_t>(row) * DH + oc) = o[a];
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + ty + 16 * a;
+    if (row >= T) continue;
+    float* dst = out + base + static_cast<size_t>(row) * DH;
+    *reinterpret_cast<float4*>(dst + 4 * tx) =
+        make_float4(o[a][0] / l[a], o[a][1] / l[a], o[a][2] / l[a], o[a][3] / l[a]);
+    *reinterpret_cast<float4*>(dst + 32 + 4 * tx) =
+        make_float4(o[a][4] / l[a], o[a][5] / l[a], o[a][6] / l[a], o[a][7] / l[a]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wmma with f32 accumulation. 4 warps; warp w owns rows 16 * (w / 2)
-// and two 16-wide column blocks (w % 2) * 2 + {0, 1} of every 32 x 64 tile.
+// bf16: mma.sync m16n8k16 (f32 accumulation), two passes over K. Warp w owns
+// query rows 16w .. 16w + 15; lane (g, t) = (lane / 4, lane % 4) holds rows
+// g and g + 8 of every accumulator fragment, columns 2t and 2t + 1.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(BF_THREADS)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fp::smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fp::smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S [16 x 16] of this warp against keys 16np .. 16np + 15 of the tile Ks:
+// s[0][.] and s[1][.] are key blocks 2np and 2np + 1.
+__device__ __forceinline__ void logits_pair(float (*s)[4], const uint32_t (*qf)[4], const bf16* Ks,
+                                            int np, int lane) {
+  s[0][0] = s[0][1] = s[0][2] = s[0][3] = s[1][0] = s[1][1] = s[1][2] = s[1][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, Ks + (16 * np + lane % 8 + 8 * (lane / 16)) * LDH + 16 * kk + 8 * ((lane / 8) % 2));
+    mma_bf16(s[0], qf[kk], b[0], b[1]);
+    mma_bf16(s[1], qf[kk], b[2], b[3]);
+  }
+}
+
+// Masks keys at or past seq_len to -inf in n key blocks starting at k0.
+template <int NB>
+__device__ __forceinline__ void mask_keys(float (*s)[4], int k0, int t, int seq_len) {
+  if (k0 + 8 * NB <= seq_len) return;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k0 + 8 * n + 2 * t + (e & 1) >= seq_len) s[n][e] = -INFINITY;
+}
+
+__global__ void __launch_bounds__(B_THREADS, B_BLOCKS)
     attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ out, int T,
                           int seq_len, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int t_alloc = round_up(T, BK_BF);
-  const int lds = t_alloc + 4, ldw = t_alloc + 8;
-  const int kv_pad = round_up(seq_len, BK_BF);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                                   // [BQ][LDH]
-  bf16* KV = Qs + fp::align128(BQ * LDH * 2) / 2;                              // [BK_BF][LDH]
-  float* S = reinterpret_cast<float*>(KV + fp::align128(BK_BF * LDH * 2) / 2);  // [BQ][lds]
-  bf16* Wt = reinterpret_cast<bf16*>(S + fp::align128(BQ * lds * 4) / 4);       // [BQ][ldw]
-  float* Os = reinterpret_cast<float*>(Wt + fp::align128(BQ * ldw * 2) / 2);    // [BQ][LDO]
+  // Two stages of K and V tiles. Pass 1 loads no V, so the query tile is
+  // staged in Vs[0], which pass 2 first fills at its second step.
+  __shared__ __align__(128) bf16 Ks[2][BKV * LDH];
+  __shared__ __align__(128) bf16 Vs[2][BKV * LDH];
   const size_t base = static_cast<size_t>(blockIdx.y) * T * DH;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int rb = (warp / 2) * 16, cb = (warp % 2) * 32;
-  stage_rows<bf16, uint4>(q + base, Qs, LDH, q0, BQ, T);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ntiles = (seq_len + BKV - 1) / BKV;
+  const int steps = 2 * ntiles;  // pass 1: K tiles; pass 2: K and V tiles
 
-  for (int k0 = 0; k0 < seq_len; k0 += BK_BF) {
+  // Step u loads K tile (u mod ntiles), and in pass 2 its V tile, into buffer u % 2.
+  auto issue = [&](int u) {
+    if (u < steps) {
+      const int tile = u < ntiles ? u : u - ntiles;
+      load_tile<bf16, LDH, B_THREADS>(Ks[u % 2], k + base, tile * BKV, seq_len);
+      if (u >= ntiles) load_tile<bf16, LDH, B_THREADS>(Vs[u % 2], v + base, tile * BKV, seq_len);
+    }
+    fp::cp_async_commit();
+  };
+  load_tile<bf16, LDH, B_THREADS>(Vs[0], q + base, q0, T);
+  issue(0);
+  issue(1);
+
+  // Rows g and g + 8: running max m of the logits in log2 units (the
+  // unscaled product times c = scale * log2 e), sum l of 2^(x - m).
+  const float c = scale * LOG2E;
+  uint32_t qf[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // Pass 1: max and (per-thread partial) sum, tile by tile.
+  for (int u = 0; u < ntiles; ++u) {
+    fp::cp_async_wait<1>();
     __syncthreads();
-    stage_rows<bf16, uint4>(k + base, KV, LDH, k0, BK_BF, seq_len);
+    if (u == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldmatrix_x4(qf[kk], Vs[0] + (16 * warp + lane % 16) * LDH + 16 * kk + 8 * (lane / 16));
+    }
+    float s[8][4];
+#pragma unroll
+    for (int np = 0; np < 4; ++np) logits_pair(s + 2 * np, qf, Ks[u % 2], np, lane);
+    mask_keys<8>(s, u * BKV, t, seq_len);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * c);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        sum += ex2(fmaf(s[n][2 * h], c, -m_new)) + ex2(fmaf(s[n][2 * h + 1], c, -m_new));
+      l[h] = l[h] * ex2(m[h] - m_new) + sum;
+      m[h] = m_new;
+    }
+    __syncthreads();  // buffer u % 2 consumed
+    issue(u + 2);
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / l[h];
+  }
+
+  // Pass 2, 16 keys at a time: S again, w = bf16(p / s) straight into the A
+  // fragments, O += w V.
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int u = ntiles; u < steps; ++u) {
+    fp::cp_async_wait<1>();
     __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
-    wmma::fill_fragment(c[0], 0.f);
-    wmma::fill_fragment(c[1], 0.f);
+    const bf16* Kb = Ks[u % 2];
+    const bf16* Vb = Vs[u % 2];
+    const int k0 = (u - ntiles) * BKV;
 #pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + rb * LDH + kk, LDH);
+    for (int j = 0; j < BKV / 16; ++j) {  // keys 16j .. 16j + 15
+      float s[2][4];
+      logits_pair(s, qf, Kb, j, lane);
+      mask_keys<2>(s, k0 + 16 * j, t, seq_len);
+      uint32_t a[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // B = K^T: element (d, key) sits at KV[key * LDH + d], column major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, KV + (cb + 16 * j) * LDH + kk, LDH);
-        wmma::mma_sync(c[j], a, b, c[j]);
+      for (int i = 0; i < 4; ++i) {  // A fragment i: key block i / 2, row g + 8 (i % 2)
+        const float* sv = s[i / 2] + 2 * (i % 2);
+        const int h = i % 2;
+        a[i] = pack_bf16(ex2(fmaf(sv[0], c, -m[h])) * inv[h], ex2(fmaf(sv[1], c, -m[h])) * inv[h]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {  // dims 16dp .. 16dp + 15
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Vb + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * LDH + 16 * dp + 8 * (lane / 16));
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
       }
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      for (int e = 0; e < c[j].num_elements; ++e) c[j].x[e] *= scale;
-      wmma::store_matrix_sync(S + rb * lds + k0 + cb + 16 * j, c[j], lds, wmma::mem_row_major);
-    }
+    __syncthreads();  // buffer u % 2 consumed
+    issue(u + 2);
   }
-  __syncthreads();
-  softmax_rows<bf16>(S, lds, Wt, ldw, seq_len, kv_pad);
+  fp::cp_async_wait<0>();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[2];
-  wmma::fill_fragment(o[0], 0.f);
-  wmma::fill_fragment(o[1], 0.f);
-  for (int k0 = 0; k0 < seq_len; k0 += BK_BF) {
-    __syncthreads();
-    stage_rows<bf16, uint4>(v + base, KV, LDH, k0, BK_BF, seq_len);
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK_BF; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Wt + rb * ldw + k0 + kk, ldw);
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= T) continue;
+    bf16* dst = out + base + static_cast<size_t>(row) * DH;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, KV + kk * LDH + cb + 16 * j, LDH);
-        wmma::mma_sync(o[j], a, b, o[j]);
-      }
-    }
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n + 2 * t) = pack_bf16(o[n][2 * h], o[n][2 * h + 1]);
   }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Os + rb * LDO + cb + 16 * j, o[j], LDO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * DH; i += blockDim.x) {
-    const int r = i / DH, c = i % DH;
-    if (q0 + r < T) out[base + static_cast<size_t>(q0 + r) * DH + c] = fp::f2bf(Os[r * LDO + c]);
-  }
-}
-
-size_t attention_smem_bytes(int T, bool bf) {
-  if (!bf) {
-    const int lds = round_up(T, BK_F32) + 1;
-    return fp::align128(BQ * LDF * 4) + fp::align128(BK_F32 * LDF * 4) +
-           fp::align128(static_cast<size_t>(BQ) * lds * 4);
-  }
-  const int t_alloc = round_up(T, BK_BF);
-  return fp::align128(BQ * LDH * 2) + fp::align128(BK_BF * LDH * 2) +
-         fp::align128(static_cast<size_t>(BQ) * (t_alloc + 4) * 4) +
-         fp::align128(static_cast<size_t>(BQ) * (t_alloc + 8) * 2) + fp::align128(BQ * LDO * 4);
 }
 
 }  // namespace
 
-// q, k, v, out [bh, T, head_dim] contiguous, f32 (is_bf16 = 0) or bf16.
+// q, k, v, out [bh, T, head_dim] contiguous, f32 (is_bf16 = 0) or bf16. Any
+// T: nothing of length T stays resident.
 FP_EXPORT int fp_attention(const void* q, const void* k, const void* v, void* out, int bh,
                            int T, int seq_len, int head_dim, int is_bf16, float scale,
                            void* stream_ptr) {
-  if (bh < 1 || T < 1 || seq_len < 1 || seq_len > T || head_dim != DH)
+  if (bh < 1 || bh > 65535 || T < 1 || seq_len < 1 || seq_len > T || head_dim != DH)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The resident logits bound T: 1408 in f32, 1088 in bf16 (227 KB a block).
-  const size_t smem = attention_smem_bytes(T, is_bf16 != 0);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + BQ - 1) / BQ, bh);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (is_bf16) {
-    cudaFuncSetAttribute(attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    attention_bf16_kernel<<<grid, BF_THREADS, smem, stream>>>(
+    attention_bf16_kernel<<<grid, B_THREADS, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(out), T, seq_len, scale);
   } else {
     cudaFuncSetAttribute(attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    attention_f32_kernel<<<grid, F32_THREADS, smem, stream>>>(
+                         static_cast<int>(F32_SMEM));
+    attention_f32_kernel<<<grid, F_THREADS, F32_SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), T, seq_len, scale);
   }

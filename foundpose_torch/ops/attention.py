@@ -10,12 +10,16 @@ computes, for each (batch * head, query tile):
 - weights p / sum cast to v's dtype, then weights . v accumulated in f32
   and cast to q's dtype.
 
-The twin evaluates exactly that. The kernel takes f32 (SIMT FMA, no TF32)
-and bf16 (tensor cores, f32 accumulation), head_dim 64, and needs no padding
-of T; it keeps a block's [32, T] logits in shared memory, so it refuses
-(cudaErrorInvalidValue, raised here) T above 1408 in f32 and 1088 in bf16.
-Unlike ops/vit_block, the normalizer is applied to p before the value
-product and the softmax runs in base e.
+The twin evaluates exactly that. The kernel takes f32 and bf16, head_dim
+64, any T (no padding, nothing of length T kept resident):
+- f32: SIMT FMA (no TF32), one pass with an online softmax, divided by the
+  sum after the value product; in f32 the cast of p / sum is the identity,
+  so this changes the rounding order only.
+- bf16: tensor cores with f32 accumulation, two passes over K (max and sum,
+  then weights and values), so the weights p / sum are cast to bf16 before
+  the value product as the contract says.
+Unlike ops/vit_block, the softmax runs in base e and, in bf16, the weights
+are normalized before the value product.
 """
 
 from __future__ import annotations

@@ -98,10 +98,10 @@ def test_score_kernel_matches_twin(dev):
     assert float(got.max()) > 0
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
 @pytest.mark.parametrize("tokens,seq_len", [(905, 905), (150, 141), (33, 33)])
 def test_attention_kernel_matches_twin(dev, dtype, tol, tokens, seq_len):
-    """Relative L2 error <= 1e-5 (f32) / 1e-2 (bf16) over all rows; T not a
+    """Relative L2 error <= 1e-5 (f32) / 1e-3 (bf16) over all rows; T not a
     multiple of any tile, keys past seq_len masked."""
     gen = torch.Generator().manual_seed(4)
     q, k, v = (torch.randn(2, 3, tokens, 64, generator=gen).to(dev, dtype) for _ in range(3))
@@ -113,14 +113,16 @@ def test_attention_kernel_matches_twin(dev, dtype, tol, tokens, seq_len):
     assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < tol
 
 
-@pytest.mark.parametrize("dtype,tokens", [(torch.float32, 1408), (torch.bfloat16, 1088)])
-def test_attention_kernel_at_its_longest_sequence(dev, dtype, tokens):
-    """The longest T whose logits fit one block's shared memory."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,seq_len", [(2048, 2048), (4100, 4097)])
+def test_attention_kernel_at_long_sequences(dev, dtype, tokens, seq_len):
+    """Sequences past any shared-memory limit: nothing of length T stays
+    resident, so long T is only more key tiles."""
     gen = torch.Generator().manual_seed(6)
     q, k, v = (torch.randn(1, 2, tokens, 64, generator=gen).to(dev, dtype) for _ in range(3))
-    got = fused_attention_bhtd(q, k, v).float()
-    ref = attention_plain(q, k, v).float()
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    got = fused_attention_bhtd(q * 2, k, v, seq_len=seq_len).float()
+    ref = attention_plain(q * 2, k, v, seq_len=seq_len).float()
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
     assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < tol
 
 
@@ -140,9 +142,12 @@ def test_unfused_vit_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
 
 
-def test_probe_kernels_match_twins(dev):
-    """int8 -> int32 exact; bf16 -> f32 within relative L2 1e-5."""
-    ins = micro_int8.probe_inputs(dev, seed=1, shape=(2, 128, 96, 256))
+@pytest.mark.parametrize("shape", [(2, 128, 96, 256), (3, 132 * 128, 384, 1536)])
+def test_probe_kernels_match_twins(dev, shape):
+    """int8 -> int32 exact; bf16 -> f32 within relative L2 1e-5. The first
+    shape's D (96) is not a whole 128-byte slice; the second's rows span
+    several tiles of every persistent block on a 132-SM card."""
+    ins = micro_int8.probe_inputs(dev, seed=1, shape=shape)
     a8, w8 = ins[torch.int8]
     np.testing.assert_array_equal(micro_int8.mm_int8(a8, w8).cpu().numpy(),
                                   micro_int8.mm_plain(a8, w8).cpu().numpy())
@@ -165,8 +170,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                         torch.ones(1, 1, 8, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError):  # head_dim 32
         fused_attention_bhtd(*(torch.zeros(1, 2, 40, 32, device=dev) for _ in range(3)))
-    with pytest.raises(RuntimeError):  # the kernel refuses T > 1408: shared memory
-        fused_attention_bhtd(*(torch.zeros(1, 1, 1409, 64, device=dev) for _ in range(3)))
     with pytest.raises(ValueError):  # rows not a multiple of 128
         micro_int8.mm_int8(torch.zeros(100, 64, dtype=torch.int8, device=dev),
                            torch.zeros(64, 128, dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError):  # a [D, 128] panel of w past shared memory
+        micro_int8.mm_bf16(torch.zeros(128, 448, dtype=torch.bfloat16, device=dev),
+                           torch.zeros(448, 128, dtype=torch.bfloat16, device=dev))
