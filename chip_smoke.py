@@ -14,7 +14,10 @@ Phases (each prints one line and raises on failure):
      layer-0 q, k, v); both GEMMs of the int8/bf16 probe. Errors against
      stated tolerances; CUDA-event times of kernel, twin and, where one
      PyTorch call computes the same function, that call; the least time
-     the card could take (bound).
+     the card could take (bound). The block's seven launches (LN1, qkv,
+     attention, proj, LN2, fc1, fc2) are timed one by one under
+     torch.profiler (foundpose_torch/benchmarks/block_split.py), beside
+     F.linear and scaled_dot_product_attention at the same shapes.
   3  main path: DINOv2 ViT-S/14-reg (calibrated random weights), an LM-O
      scale synthetic representation and configs/infer/lmo.json, serving
      batches of 420 px crops through pipeline.inference.pose_from_crops until
@@ -198,6 +201,7 @@ def bench_mask(torch, gen, batch, device):
 
 
 def phase_kernels(torch, model, vit_cfg, repre, config, device):
+    from foundpose_torch.benchmarks import block_split
     from foundpose_torch.models import dinov2
     from foundpose_torch.ops import sampling
     from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
@@ -267,6 +271,14 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     check(max(branch) <= BRANCH_REL_L2 and col_branch <= BRANCH_REL_L2,
           f"block branch rel L2 {branch} {col_branch}")
     check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN, f"fmap cosine {cos_med} {cos_min}")
+    # The seven launches of one capped layer, and the PyTorch calls of the
+    # same shapes as yardsticks (the port never calls them).
+    split = block_split.launch_split(fused_vit_block, x0, p0, softmax_stabilizer="capped", **kw)
+    yard = block_split.yardsticks(x0, p0, vit_cfg.num_heads, vit_cfg.head_dim)
+    result["vit_block"].update(split=split, yardsticks_ms=yard)
+    log(2, "vit_block launches (device ms, torch.profiler, mean of 5 calls): "
+           + ", ".join(f"{r['launch']} {r['ms']:.4f}" for r in split)
+           + "; yardsticks ms: " + ", ".join(f"{k} {v:.4f}" for k, v in yard.items()))
 
     # --- Buddies: queries drawn from a retrieved template's bank plus noise.
     tn, q = config.top_n_templates, 900

@@ -68,12 +68,11 @@ constexpr int B_BLOCKS = 6;                    // bf16: blocks per SM (37 KB of 
 constexpr size_t F32_SMEM = 4 * BQ * LDF * sizeof(float);
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 2^x by the SFU (relative error below 2^-22; -inf gives 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using fp::ex2;
+using fp::ldmatrix_x4;
+using fp::ldmatrix_x4_trans;
+using fp::mma_bf16;
+using fp::pack_bf16;
 
 // Rows [r0, r0 + 64) of a [*, 64] matrix into shared memory (leading
 // dimension ld elements) by cp.async; rows at or past `limit` are zero.
@@ -225,52 +224,6 @@ __global__ void __launch_bounds__(F_THREADS, 3)
 // query rows 16w .. 16w + 15; lane (g, t) = (lane / 4, lane % 4) holds rows
 // g and g + 8 of every accumulator fragment, columns 2t and 2t + 1.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(fp::smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(fp::smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// S [16 x 16] of this warp against keys 16np .. 16np + 15 of the tile Ks:
-// s[0][.] and s[1][.] are key blocks 2np and 2np + 1.
-__device__ __forceinline__ void logits_pair(float (*s)[4], const uint32_t (*qf)[4], const bf16* Ks,
-                                            int np, int lane) {
-  s[0][0] = s[0][1] = s[0][2] = s[0][3] = s[1][0] = s[1][1] = s[1][2] = s[1][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t b[4];
-    ldmatrix_x4(b, Ks + (16 * np + lane % 8 + 8 * (lane / 16)) * LDH + 16 * kk + 8 * ((lane / 8) % 2));
-    mma_bf16(s[0], qf[kk], b[0], b[1]);
-    mma_bf16(s[1], qf[kk], b[2], b[3]);
-  }
-}
-
-// Masks keys at or past seq_len to -inf in n key blocks starting at k0.
-template <int NB>
-__device__ __forceinline__ void mask_keys(float (*s)[4], int k0, int t, int seq_len) {
-  if (k0 + 8 * NB <= seq_len) return;
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (k0 + 8 * n + 2 * t + (e & 1) >= seq_len) s[n][e] = -INFINITY;
-}
 
 __global__ void __launch_bounds__(B_THREADS, B_BLOCKS)
     attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -317,8 +270,8 @@ __global__ void __launch_bounds__(B_THREADS, B_BLOCKS)
     }
     float s[8][4];
 #pragma unroll
-    for (int np = 0; np < 4; ++np) logits_pair(s + 2 * np, qf, Ks[u % 2], np, lane);
-    mask_keys<8>(s, u * BKV, t, seq_len);
+    for (int np = 0; np < 4; ++np) fp::logits_pair<DH / 16, LDH>(s + 2 * np, qf, Ks[u % 2], np, lane);
+    fp::mask_keys<8>(s, u * BKV, t, seq_len);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
@@ -359,8 +312,8 @@ __global__ void __launch_bounds__(B_THREADS, B_BLOCKS)
 #pragma unroll
     for (int j = 0; j < BKV / 16; ++j) {  // keys 16j .. 16j + 15
       float s[2][4];
-      logits_pair(s, qf, Kb, j, lane);
-      mask_keys<2>(s, k0 + 16 * j, t, seq_len);
+      fp::logits_pair<DH / 16, LDH>(s, qf, Kb, j, lane);
+      fp::mask_keys<2>(s, k0 + 16 * j, t, seq_len);
       uint32_t a[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // A fragment i: key block i / 2, row g + 8 (i % 2)

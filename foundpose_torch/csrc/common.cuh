@@ -8,7 +8,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #define FP_EXPORT extern "C" __attribute__((visibility("default")))
@@ -27,7 +26,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Bytes rounded up to a multiple of 128, so that every buffer carved out of
-// dynamic shared memory keeps the 32-byte alignment WMMA loads require.
+// dynamic shared memory keeps the 16-byte alignment of cp.async and ldmatrix.
 __host__ __device__ constexpr size_t align128(size_t bytes) {
   return (bytes + 127) / 128 * 128;
 }

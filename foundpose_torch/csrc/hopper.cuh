@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // cp.async with zero fill, mbarriers, TMA tensor loads and stores, the
-// 128-byte shared-memory swizzle, wgmma descriptors and products, and the
-// host-side tensor-map encoder (cuTensorMapEncodeTiled, looked up at run
+// 128-byte shared-memory swizzle, wgmma descriptors and products, ldmatrix
+// and mma.sync, the SFU's exp2, and the host-side tensor-map encoder (cuTensorMapEncodeTiled, looked up at run
 // time through the CUDA runtime, so the library needs no -lcuda).
 #pragma once
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <math.h>
 
 #include "common.cuh"
 
@@ -155,6 +156,66 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_
 #undef FP_WG_D64
 #undef FP_WG_64
 #undef FP_WG_8
+
+// --- Warp-level tensor-core products (mma.sync m16n8k16, bf16 -> f32). --------------
+// Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of an accumulator
+// fragment c[4], columns 2t and 2t + 1 (c[0..1] row g, c[2..3] row g + 8).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Two floats rounded to bf16 and packed (lo in the low half), as an A
+// fragment register wants them.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 2^x by the SFU (relative error below 2^-22; -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S [16 x 16] = Q K^T of one warp: Q as A fragments in registers (KSTEPS
+// steps of 16), K's rows 16np .. 16np + 15 of a shared tile with LD
+// elements a row. s[0][.] and s[1][.] are key blocks 2np and 2np + 1.
+template <int KSTEPS, int LD>
+__device__ __forceinline__ void logits_pair(float (*s)[4], const uint32_t (*qf)[4], const bf16* Ks,
+                                            int np, int lane) {
+  s[0][0] = s[0][1] = s[0][2] = s[0][3] = s[1][0] = s[1][1] = s[1][2] = s[1][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, Ks + (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 16 * kk + 8 * ((lane / 8) % 2));
+    mma_bf16(s[0], qf[kk], b[0], b[1]);
+    mma_bf16(s[1], qf[kk], b[2], b[3]);
+  }
+}
+
+// Masks keys at or past seq_len to -inf in NB key blocks starting at k0.
+template <int NB>
+__device__ __forceinline__ void mask_keys(float (*s)[4], int k0, int t, int seq_len) {
+  if (k0 + 8 * NB <= seq_len) return;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k0 + 8 * n + 2 * t + (e & 1) >= seq_len) s[n][e] = -INFINITY;
+}
 
 // --- Host: tensor maps. -------------------------------------------------------------
 // A 2D row-major tensor [rows, cols] of `esize`-byte elements with a box of

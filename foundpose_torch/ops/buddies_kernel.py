@@ -19,6 +19,7 @@ from foundpose_torch import _kernels
 from foundpose_torch.ops.selection import INVALID_SENTINEL
 
 _BIG = 1e30
+_INT32_MAX = 2**31 - 1
 
 
 def _bits(n: int) -> int:
@@ -94,11 +95,16 @@ def cycle_distances(
     qf = query_feats.contiguous()
     bf = sel_feats.contiguous()
     dev = _kernels.require_cuda("cycle_distances", qf, bf, qmask, bmask, qpts)
+    if qf.data_ptr() % 16 or bf.data_ptr() % 16:
+        raise ValueError("cycle_distances: features must be 16-byte aligned (cp.async)")
     cd = torch.empty(b, tn, q, dtype=torch.float32, device=dev)
     q2o = torch.empty(b, tn, q, dtype=torch.int32, device=dev)
+    # Column keys of every bank row, folded in by atomicMin from each query tile.
+    colkeys = torch.full((b, tn, f), _INT32_MAX, dtype=torch.int32, device=dev)
+    norms = torch.empty(b * q + b * tn * f, dtype=torch.float32, device=dev)
     rc = _kernels.library().fp_cycle_distances(
         qf.data_ptr(), bf.data_ptr(), qmask.data_ptr(), bmask.data_ptr(),
-        qpts.data_ptr(), cd.data_ptr(), q2o.data_ptr(),
+        qpts.data_ptr(), cd.data_ptr(), q2o.data_ptr(), colkeys.data_ptr(), norms.data_ptr(),
         b, tn, q, f, dim, _bits(f), _bits(q), _kernels.stream_ptr(dev),
     )
     _kernels.check(rc, "fp_cycle_distances")

@@ -157,6 +157,8 @@ def fused_vit_block(
         if a.dtype != torch.bfloat16:
             raise ValueError(f"fused_vit_block: {k} must be bfloat16, got {a.dtype}")
     dev = _kernels.require_cuda("fused_vit_block", x, *w)
+    if any(a.data_ptr() % 16 for a in (x, *w)):
+        raise ValueError("fused_vit_block: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     m = b * t
     out = torch.empty_like(x)
     xn = torch.empty(m, d, dtype=x.dtype, device=dev)

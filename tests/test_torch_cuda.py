@@ -44,13 +44,14 @@ def block_weights(gen, d, hidden, dev):
 
 
 @pytest.mark.parametrize("stabilizer", ["capped", "column"])
-@pytest.mark.parametrize("tokens,seq_len", [(150, 150), (160, 141)])
-def test_vit_block_kernel_matches_twin(dev, stabilizer, tokens, seq_len):
-    """Relative L2 error <= 1e-2 on the rows below seq_len (bf16)."""
+@pytest.mark.parametrize("batch,tokens,seq_len", [(2, 150, 150), (2, 160, 141), (3, 150, 141)])
+def test_vit_block_kernel_matches_twin(dev, stabilizer, batch, tokens, seq_len):
+    """Relative L2 error <= 1e-2 on the rows below seq_len (bf16). 3 x 150
+    rows is not a multiple of the GEMMs' 128-row tiles (ragged M)."""
     gen = torch.Generator().manual_seed(0)
     d, hidden = 128, 512
     p = block_weights(gen, d, hidden, dev)
-    x = torch.randn(2, tokens, d, generator=gen).to(dev, torch.bfloat16)
+    x = torch.randn(batch, tokens, d, generator=gen).to(dev, torch.bfloat16)
     kw = dict(seq_len=seq_len, num_heads=2, head_dim=64, approx_gelu=stabilizer == "capped",
               softmax_stabilizer=stabilizer)
     before = fused_vit_block.launches
@@ -60,9 +61,27 @@ def test_vit_block_kernel_matches_twin(dev, stabilizer, tokens, seq_len):
     assert float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)) < 1e-2
 
 
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("approx_gelu", [True, False])
+def test_vit_block_kernel_at_full_width(dev, stabilizer, approx_gelu):
+    """ViT-S/14 widths (d 384, 6 heads, hidden 1536; fc2's K is 1536, so its
+    weights stream through the ring): relative L2 <= 1e-2 on the output and
+    on the residual branches (out - x), which a wrong head would move."""
+    gen = torch.Generator().manual_seed(7)
+    d, hidden = 384, 1536
+    p = block_weights(gen, d, hidden, dev)
+    x = torch.randn(2, 905, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=6, head_dim=64, approx_gelu=approx_gelu, softmax_stabilizer=stabilizer)
+    got = fused_vit_block(x, p, **kw).float()
+    ref = fused_vit_block_plain(x, p, **kw).float()
+    xf = x.float()
+    for a, b in ((got, ref), (got - xf, ref - xf)):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
+
+
 def test_buddies_kernel_matches_twin(dev):
-    """Ragged Q and F (not multiples of the 64-wide tiles): q2o equal on
-    >= 99% of valid queries, cycle distances equal where q2o is."""
+    """Ragged Q and F (not multiples of the tiles): q2o equal on >= 99% of
+    valid queries, cycle distances equal where q2o is."""
     gen = torch.Generator().manual_seed(1)
     b, tn, q, f, d = 2, 3, 200, 100, 64
     bank = torch.randn(b, tn, f, d, generator=gen)
@@ -79,6 +98,61 @@ def test_buddies_kernel_matches_twin(dev):
     assert float(same.sum() / valid.sum()) >= 0.99
     assert float(((cd_k - cd_p).abs() <= 1e-4)[same].float().mean()) >= 0.99
     assert bool((cd_k[~valid] == 1e30).all())
+
+
+def test_buddies_kernel_is_exact_across_query_tiles(dev):
+    """Q 200 over two 128-query tiles, the first wholly masked; F 100 over
+    four 32-row bank tiles; bank rows duplicated, so that equal distances
+    (ties) fall in different tiles. Features on a 1/4 grid make every
+    product and sum exact in f32, so kernel and twin see the same
+    distances: q2o equal at every valid query, cycle distances equal
+    everywhere."""
+    gen = torch.Generator().manual_seed(8)
+    b, tn, q, f, d = 2, 3, 200, 100, 64
+    bank = torch.randint(-4, 5, (b, tn, f, d), generator=gen) / 4.0
+    bank[:, :, 60:90] = bank[:, :, 10:40]  # duplicates 50 rows apart
+    rows = torch.randint(0, f, (b, q), generator=gen)
+    qf = bank[:, 0].gather(1, rows[..., None].expand(b, q, d))
+    qf = qf + torch.randint(-1, 2, qf.shape, generator=gen) / 4.0
+    qmask = torch.rand(b, q, generator=gen) > 0.2
+    qmask[:, :128] = False
+    bmask = torch.rand(b, tn, f, generator=gen) > 0.1
+    bmask[:, :, 60:90] = bmask[:, :, 10:40]
+    qpts = torch.rand(q, 2, generator=gen) * 400
+    args = [t.to(dev) for t in (qf.bfloat16(), qmask, qpts, bank.bfloat16(), bmask)]
+    cd_k, q2o_k = cycle_distances(*args)
+    cd_p, q2o_p = cycle_distances_plain(*args)
+    valid = args[1][:, None, :].expand_as(cd_k)
+    assert bool((q2o_k[valid] == q2o_p[valid]).all())
+    # A tie between duplicates goes to the lower one, so no valid query
+    # lands on rows 60-89.
+    assert not bool(((q2o_k >= 60) & (q2o_k < 90))[valid].any())
+    np.testing.assert_array_equal(cd_k.cpu().numpy(), cd_p.cpu().numpy())
+
+
+def test_buddies_kernel_at_the_main_path_shapes(dev):
+    """[16, 900, 256] x [16, 5, 512, 256] with the bench's crop masks (about
+    79% of queries masked): q2o equal on >= 99% of valid queries, cycle
+    distances within 1e-4 there and equal at masked queries."""
+    gen = torch.Generator().manual_seed(9)
+    b, tn, q, f, d = 16, 5, 900, 512, 256
+    bank = torch.randn(b, tn, f, d, generator=gen)
+    rows = torch.randint(0, f, (b, q), generator=gen)
+    qf = bank[:, 0].gather(1, rows[..., None].expand(b, q, d)) + 0.3 * torch.randn(b, q, d, generator=gen)
+    inner = (torch.rand(b, 260, 260, generator=gen) > 0.4).float()
+    masks = torch.zeros(b, 420, 420)
+    masks[:, 80:340, 80:340] = inner
+    grid = sampling.grid_points((420, 420), 14.0)
+    qmask = sampling.points_in_mask(grid, masks)
+    bmask = torch.rand(b, tn, f, generator=gen) > 0.2
+    args = [t.to(dev) for t in (qf.bfloat16(), qmask, grid, bank.bfloat16(), bmask)]
+    cd_k, q2o_k = cycle_distances(*args)
+    cd_p, q2o_p = cycle_distances_plain(*args)
+    valid = args[1][:, None, :].expand_as(cd_k)
+    same = (q2o_k == q2o_p) & valid
+    assert float(same.sum() / valid.sum()) >= 0.99
+    assert float(((cd_k - cd_p).abs() <= 1e-4)[same].float().mean()) >= 0.99
+    assert bool((cd_k[~valid] == cd_p[~valid]).all())
 
 
 def test_score_kernel_matches_twin(dev):

@@ -53,6 +53,30 @@ def test_buddies_twin_matches_pallas_kernel(rng):
     np.testing.assert_array_equal(q2o_t.numpy()[valid], np.asarray(q2o_j)[valid])
 
 
+def test_buddies_twin_matches_pallas_kernel_mostly_masked(rng):
+    """About 80% of queries masked (as the bench's crop masks leave them)
+    and Q = 150, not a multiple of 64 or 128: q2o equal at every valid
+    query, cycle distances (INVALID_SENTINEL at masked ones) everywhere,
+    atol 1e-5."""
+    b, tn, q, f, d = 2, 3, 150, 40, 16
+    bank = rng.normal(size=(b, tn, f, d)).astype(np.float32)
+    rows = rng.integers(0, f, size=(b, q))
+    qf = bank[np.arange(b)[:, None], 0, rows] + 0.3 * rng.normal(size=(b, q, d)).astype(np.float32)
+    qmask = rng.uniform(size=(b, q)) > 0.8
+    smask = rng.uniform(size=(b, tn, f)) > 0.2
+    qpts = rng.uniform(0, 400, size=(q, 2)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        cd_j, q2o_j = cycle_distances_fused(
+            jnp.asarray(qf), jnp.asarray(qmask), jnp.asarray(qpts), jnp.asarray(bank),
+            jnp.asarray(smask),
+        )
+    cd_t, q2o_t = cycle_distances(T(qf), T(qmask), T(qpts), T(bank), T(smask))
+    valid = np.broadcast_to(qmask[:, None, :], cd_t.shape)
+    assert 0.1 < valid.mean() < 0.3
+    np.testing.assert_allclose(cd_t.numpy(), np.asarray(cd_j), atol=1e-5)
+    np.testing.assert_array_equal(q2o_t.numpy()[valid], np.asarray(q2o_j)[valid])
+
+
 @pytest.mark.parametrize("approx", [True, False])
 def test_establish_correspondences_batch(rng, approx):
     """Approx path (vs the JAX kernel path in interpret mode) and exact

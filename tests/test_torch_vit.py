@@ -83,6 +83,21 @@ def test_block_twin_matches_pallas_block(rng, stabilizer, approx_gelu):
     np.testing.assert_allclose(out[:, :t].numpy(), np.asarray(ref)[:, :t], atol=2e-4)
 
 
+@pytest.mark.parametrize("stabilizer,approx_gelu", [("capped", True), ("column", False)])
+def test_block_twin_matches_pallas_block_at_kernel_head_dim(rng, stabilizer, approx_gelu):
+    """The same at the CUDA kernel's head_dim 64: d=128, 2 heads, hidden
+    512, 141 tokens padded to 144 (ragged seq_len), f32, atol 2e-4."""
+    layer = random_layer(rng, d=128, hidden=512)
+    t, t_pad, d = 141, 144, 128
+    x = rng.normal(size=(2, t_pad, d)).astype(np.float32)
+    kw = dict(seq_len=t, num_heads=2, head_dim=64, eps=1e-6, approx_gelu=approx_gelu,
+              softmax_stabilizer=stabilizer)
+    with pltpu.force_tpu_interpret_mode():
+        ref = j_fused_vit_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v in layer.items()}, **kw)
+    out = fused_vit_block(torch.from_numpy(x), torch_layer(layer), **kw)
+    np.testing.assert_allclose(out[:, :t].numpy(), np.asarray(ref)[:, :t], atol=2e-4)
+
+
 def test_block_twin_bf16_rounding_points(rng):
     """In bf16 the twin rounds where the Pallas kernel does; equal to the
     f32 block within bf16 resolution, and bf16 where the kernel is."""
