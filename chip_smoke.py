@@ -9,12 +9,15 @@ Phases (each prints one line and raises on failure):
      all started together, into foundpose_torch/_build.
   2  kernels vs their plain PyTorch twins at their paths' shapes: the ViT
      block per layer (whole output and the residual branches alone) and
-     over all layers, the buddies cycle distances, the RANSAC scorer (bf16
-     lmo.json path); attention at f32 and bf16 (the unfused path's
-     layer-0 q, k, v); both GEMMs of the int8/bf16 probe. Errors against
-     stated tolerances; CUDA-event times of kernel, twin and, where one
-     PyTorch call computes the same function, that call; the least time
-     the card could take (bound). The block's seven launches (LN1, qkv,
+     over all layers, the buddies cycle distances, the RANSAC scorer from
+     its raw operands at lmo.json's 200 and lmo_exact.json's 400
+     hypotheses (counts bit-equal to the twin's; the kernel's device time
+     under torch.profiler beside the CUDA-event time of the wrapper call);
+     attention at f32 and bf16 (the unfused path's layer-0 q, k, v); both
+     GEMMs of the int8/bf16 probe. Errors against stated tolerances;
+     CUDA-event times of kernel, twin and, where one PyTorch call computes
+     the same function, that call; the least time the card could take
+     (bound). The block's seven launches (LN1, qkv,
      attention, proj, LN2, fc1, fc2) are timed one by one under
      torch.profiler (foundpose_torch/benchmarks/block_split.py), beside
      F.linear and scaled_dot_product_attention at the same shapes.
@@ -74,8 +77,6 @@ BRANCH_REL_L2 = 1e-2
 FMAP_COS_MEDIAN, FMAP_COS_MIN = 0.999, 0.99  # per-token cosine after all layers
 BUDDIES_Q2O_AGREE = 0.99  # share of valid queries with equal q2o
 BUDDIES_CD_ATOL = 1e-4
-SCORE_AGREE = 0.995  # share of hypotheses with equal counts
-SCORE_MAX_DIFF = 1.0
 # Attention kernel vs twin, relative L2: f32 differs in summation order
 # and divides by the sum after the value product (the same rounding-order
 # change, since the f32 weights are never cast); bf16 casts p / sum before
@@ -206,8 +207,7 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     from foundpose_torch.ops import sampling
     from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
     from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain, layer_norm
-    from foundpose_torch.pipeline.inference import preprocess_crops
-    from foundpose_torch.pose import pnp
+    from foundpose_torch.pipeline.inference import inference_config_from_opts, preprocess_crops
 
     gen = torch.Generator(device=device).manual_seed(11)
     b = 16
@@ -318,44 +318,54 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     check(q2o_agree >= BUDDIES_Q2O_AGREE and cd_agree >= BUDDIES_Q2O_AGREE and masked_ok,
           "buddies kernel disagrees with its twin")
 
-    # --- RANSAC scorer: 80 sets x 300 points x 200 hypotheses near the truth.
-    s, n, h = b * tn, config.top_k_buddies, config.pnp_ransac_iter
-    rng = np.random.default_rng(5)
-    pts3d = rng.uniform(-0.05, 0.05, (s, n, 3)).astype(np.float32)
-    t_gt = np.array([0.0, 0.0, 0.5], np.float32)
-    uv = pts3d[..., :2] / (pts3d[..., 2:] + t_gt[2]) * 600.0 + 209.5
-    uv += rng.normal(0, 1.0, uv.shape)
-    out = rng.uniform(size=(s, n)) < 0.3
-    uv[out] = rng.uniform(0, 420, (int(out.sum()), 2))
-    validn = rng.uniform(size=(s, n)) < 0.85
-    rs = np.stack([np.eye(3, dtype=np.float32)] * (s * h)).reshape(s, h, 3, 3)
-    rs = rs + rng.normal(0, 0.02, rs.shape).astype(np.float32)
-    ts = t_gt + rng.normal(0, 0.004, (s, h, 3)).astype(np.float32)
-    tt = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    k_f = torch.full((s, 2), 600.0, device=device)
-    k_c = torch.full((s, 2), 209.5, device=device)
-    ops = pnp._score_inputs(tt(uv), tt(pts3d), tt(validn), tt(rs), tt(ts), k_f, k_c, 10.0)
-    cnt_k = pnp.score_hypotheses(*ops)
-    cnt_p = pnp.score_hypotheses_plain(*ops)
-    diff = (cnt_k - cnt_p).abs()
-    agree = float((diff == 0).float().mean())
-    ms_k = cuda_ms(torch, lambda: pnp.score_hypotheses(*ops))
-    ms_p = cuda_ms(torch, lambda: pnp.score_hypotheses_plain(*ops))
-    # 30 f32 operations a point test (three 4-term dots, the two error
-    # terms, both squared norms, the count), every point of every set.
-    bms, by = bound(30.0 * s * n * h, nbytes(*ops, cnt_k), "f32")
-    result["ransac_score"] = dict(
-        shape=[s, n, h], agree=agree, max_abs_err=float(diff.max()),
-        mean_count=float(cnt_p.mean()), ms=ms_k, plain_ms=ms_p,
-        bound_ms=bms, bound_by=by, library_ms=None,
-    )
-    log(2, f"ransac_score {s} sets x {n} pts x {h} hyps: counts equal {agree:.5f} (tol "
-           f"{SCORE_AGREE}), max diff {float(diff.max())} (mean count "
-           f"{float(cnt_p.mean()):.1f}); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms")
-    check(agree >= SCORE_AGREE and float(diff.max()) <= SCORE_MAX_DIFF, "scorer disagrees")
+    # --- RANSAC scorer at both configurations' hypothesis counts.
+    with open(LMO_EXACT_CONFIG) as f:
+        exact_iter = inference_config_from_opts(json.load(f)).pnp_ransac_iter
+    result["ransac_score"] = {
+        **scorer_vs_twin(torch, b * tn, config.top_k_buddies, config.pnp_ransac_iter),
+        "lmo_exact": scorer_vs_twin(torch, b * tn, config.top_k_buddies, exact_iter),
+    }
     result["attention"] = attention_vs_twin(torch, model, vit_cfg, crops)
     result["micro_mm"] = probe_vs_twin(torch, device)
     return result
+
+
+def scorer_vs_twin(torch, s, n, h):
+    """The scorer on s sets x n points x h hypotheses near the truth
+    (foundpose_torch/benchmarks/score_time.py), from the raw operands:
+    counts against the twin's, which must be equal bit for bit; the
+    kernel's device time under torch.profiler (mean of 20 launches), the
+    CUDA-event time of whole wrapper calls and the twin's."""
+    from foundpose_torch.benchmarks import score_time
+    from foundpose_torch.pose import pnp
+
+    ops = score_time.score_operands(s, n, h)
+    thr = score_time.THRESH
+    cnt_k = pnp.score_hypotheses(**ops, inlier_thresh=thr)
+    cnt_p = pnp.score_hypotheses_plain(**ops, inlier_thresh=thr)
+    diff = (cnt_k - cnt_p).abs()
+    agree = float((diff == 0).float().mean())
+    call = score_time.scorer_call(pnp, ops)
+    dev_ms = score_time.device_ms(call)
+    event_ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: pnp.score_hypotheses_plain(**ops, inlier_thresh=thr))
+    # 30 f32 operations a point test (three 4-term dots, the two error
+    # terms, both squared norms, the count) for every valid point of every
+    # set: a point outside the mask needs no test. The folding is a few
+    # more per hypothesis and per point, noise beside it.
+    valid_points = float(ops["validf"].sum())
+    bms, by = bound(30.0 * valid_points * h, nbytes(*ops.values(), cnt_k), "f32")
+    log(2, f"ransac_score {s} sets x {n} pts x {h} hyps (raw operands): counts equal "
+           f"{agree:.5f} (tol 1.0), max diff {float(diff.max())} (tol 0; mean count "
+           f"{float(cnt_p.mean()):.1f}); kernel device {dev_ms:.4f} ms (torch.profiler, 20 "
+           f"launches), wrapper {event_ms:.4f} ms (CUDA events), twin {plain_ms:.3f} ms; bound "
+           f"{bms:.5f} ms ({by}, {int(valid_points)} valid points); no single PyTorch call "
+           "computes the count")
+    check(agree == 1.0 and float(diff.max()) == 0.0, f"scorer disagrees at H {h}")
+    return dict(shape=[s, n, h], valid_points=valid_points, agree=agree,
+                max_abs_err=float(diff.max()), mean_count=float(cnt_p.mean()), ms=dev_ms,
+                event_ms=event_ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def attention_vs_twin(torch, model, vit_cfg, crops):
@@ -556,11 +566,15 @@ def profile_call(torch, fn, phase, table_name):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, table_name), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    # The host side of every kernel launch is one runtime launch call.
+    launch_calls = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                       and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     res = dict(wall_s=wall, device_busy_s=busy_s, device_busy_share=busy_s / wall,
-               device_ops=sum(x[2] for x in dev_us), top=dev_us[:12])
+               device_ops=sum(x[2] for x in dev_us), host_launch_calls=launch_calls,
+               top=dev_us[:12])
     log(phase, f"one request under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
            f"{busy_s * 1e3:.1f} ms ({100 * busy_s / wall:.1f}%), {res['device_ops']} "
-           "device ops; top: " + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms x{c}"
+           f"device ops, {launch_calls} host launch calls; top: " + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms x{c}"
                                            for k, t, c in dev_us[:6]))
     return res
 
@@ -593,7 +607,7 @@ def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32):
         width=420, height=420,
     )
     repre = make_repre(feat_vectors, vertices, tpl_ids, words, idfs.numpy(), descs.numpy(),
-                       cams, tfidf_config=cfg)
+                       cams, tfidf_config=cfg, device="cpu")
     return repre, obj_points, obj_feats, tpl_point_ids
 
 
@@ -918,6 +932,9 @@ def main():
             entry["bf16"] = {key: k["bf16"][key] for key in keys}
             if name == "micro_mm":
                 entry["bf16"]["launches"] = report["probe"]["launches"]["mm_bf16"]
+        if "lmo_exact" in k:  # the scorer at lmo_exact.json's 400 hypotheses (lmo.json above)
+            entry["lmo_exact"] = {key: k["lmo_exact"][key] for key in keys}
+            entry["lmo_exact"]["launches"] = report["serving"]["launches"]["ransac_score"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,11 +36,15 @@ _SQRT3 = math.sqrt(3.0)
 
 
 def _score_inputs(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh):
-    """Kernel operands with focal and threshold folded in: pts4 [S, N, 4],
-    duv [S, N, 2], valid [S, N], A [S, 12, H]."""
+    """Operands with focal and threshold folded in, as the JAX wrapper folds
+    them: pts4 [S, N, 4], duv [S, N, 2], valid [S, N], A [S, 12, H].
+
+    The threshold is a 0-d f32 tensor on the operands' device, so that both
+    divisions are IEEE divisions on the card too (PyTorch multiplies by the
+    reciprocal when it divides a CUDA tensor by a Python number)."""
     ones = torch.ones_like(pts3d[..., :1])
     pts4 = torch.cat([pts3d, ones], dim=-1).float()
-    thr = float(inlier_thresh)
+    thr = torch.full((), float(inlier_thresh), dtype=torch.float32, device=pts2d.device)
     duv = ((k_c[:, None, :] - pts2d) / thr).float()
     a = torch.cat([rs, ts[..., None]], dim=-1)  # [S, H, 3, 4]
     a = torch.cat(
@@ -54,9 +58,10 @@ def _score_inputs(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh):
     return pts4, duv, validf.float(), a.transpose(1, 2).float()
 
 
-def score_hypotheses_plain(pts4, duv, valid, a) -> torch.Tensor:
-    """Masked inlier counts [S, H] in plain PyTorch, evaluated term by term
-    in the order the CUDA kernel rounds them."""
+def score_hypotheses_plain(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh) -> torch.Tensor:
+    """Masked inlier counts [S, H] in plain PyTorch: `_score_inputs`, then
+    the test evaluated term by term in the order the CUDA kernel rounds it."""
+    pts4, duv, valid, a = _score_inputs(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
 
     def dot(rows):
         p = [pts4[..., i, None] * a[:, None, rows.start + i, :] for i in range(4)]
@@ -69,25 +74,36 @@ def score_hypotheses_plain(pts4, duv, valid, a) -> torch.Tensor:
     return torch.sum(torch.where(inl, valid[..., None], 0.0), dim=1)
 
 
-def score_hypotheses(pts4, duv, valid, a) -> torch.Tensor:
-    """Masked inlier count per hypothesis.
+def score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh: float) -> torch.Tensor:
+    """Masked inlier count per hypothesis: the JAX package's
+    `score_hypotheses_fused`, batched over S correspondence sets.
 
-    pts4 [S, N, 4], duv [S, N, 2], valid [S, N], a [S, 12, H], all f32 ->
-    counts [S, H] f32. CPU tensors take the plain twin; CUDA tensors the
-    kernel.
+    pts2d [S, N, 2] pixels, pts3d [S, N, 3], validf [S, N] a 0/1 mask,
+    rs [S, H, 3, 3], ts [S, H, 3], k_f / k_c [S, 2], all f32 -> counts
+    [S, H] f32. CPU tensors take the plain twin; CUDA tensors one launch of
+    the kernel, which folds focal length and threshold itself. The kernel
+    skips the points whose mask is 0 and adds the others' mask values in no
+    fixed order, so its counts equal the twin's only for a 0/1 mask, which
+    is what `ransac_pnp` passes.
     """
-    if pts4.device.type == "cpu":
-        return score_hypotheses_plain(pts4, duv, valid, a)
-    s, n, _ = pts4.shape
-    h = a.shape[-1]
-    if duv.shape != (s, n, 2) or valid.shape != (s, n) or a.shape != (s, 12, h):
+    if pts2d.device.type == "cpu":
+        return score_hypotheses_plain(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
+    s, n, _ = pts2d.shape
+    h = rs.shape[1]
+    if (pts3d.shape != (s, n, 3) or validf.shape != (s, n) or rs.shape != (s, h, 3, 3)
+            or ts.shape != (s, h, 3) or k_f.shape != (s, 2) or k_c.shape != (s, 2)):
         raise ValueError("score_hypotheses: operand shapes do not match")
-    ops = [t.float().contiguous() for t in (pts4, duv, valid, a)]
-    dev = _kernels.require_cuda("score_hypotheses", *ops)
+    pts2d, pts3d, validf, k_f, k_c = (t.float().contiguous()
+                                      for t in (pts2d, pts3d, validf, k_f, k_c))
+    rs, ts = rs.float(), ts.float()  # strided: the DLT leaves them lane-major
+    dev = _kernels.require_cuda("score_hypotheses", pts2d, pts3d, validf, k_f, k_c)
+    if rs.device != dev or ts.device != dev:
+        raise ValueError("score_hypotheses: all inputs must be on one CUDA device")
     counts = torch.empty(s, h, dtype=torch.float32, device=dev)
     rc = _kernels.library().fp_score_hypotheses(
-        *(t.data_ptr() for t in ops), counts.data_ptr(), s, n, h,
-        _kernels.stream_ptr(dev),
+        pts2d.data_ptr(), pts3d.data_ptr(), validf.data_ptr(), rs.data_ptr(), ts.data_ptr(),
+        k_f.data_ptr(), k_c.data_ptr(), float(inlier_thresh), counts.data_ptr(), s, n, h,
+        *rs.stride(), *ts.stride(), _kernels.stream_ptr(dev),
     )
     _kernels.check(rc, "fp_score_hypotheses")
     score_hypotheses.launches += 1
@@ -296,9 +312,7 @@ def ransac_pnp(
     rs = torch.where(finite[..., None, None], rs, eye)
     ts = torch.where(finite[..., None], ts, torch.tensor([0.0, 0.0, 1.0], device=ts.device))
 
-    hyp_counts = score_hypotheses(
-        *_score_inputs(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
-    )
+    hyp_counts = score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
     best = torch.argmax(hyp_counts, dim=-1)  # first maximum
     ar = torch.arange(s_, device=best.device)
     r_best, t_best = rs[ar, best], ts[ar, best]

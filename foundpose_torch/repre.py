@@ -165,7 +165,7 @@ def make_repre(
     tfidf_config: TfidfConfig = TfidfConfig(),
     extractor_name: str = "",
     feat_mask: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
 ) -> ObjectRepre:
     """ObjectRepre on `device` from flat host arrays (banks built here)."""
     num_templates = template_descs.shape[0]
@@ -196,7 +196,7 @@ def make_repre(
     )
 
 
-def load_repre(repre_dir: str, device="cpu") -> ObjectRepre:
+def load_repre(repre_dir: str, device="cuda") -> ObjectRepre:
     """Reads `<dir>/repre.npz` + `<dir>/repre_meta.json` written by the JAX
     package's `save_repre`."""
     with np.load(os.path.join(repre_dir, "repre.npz")) as data:

@@ -155,21 +155,51 @@ def test_buddies_kernel_at_the_main_path_shapes(dev):
     assert bool((cd_k[~valid] == cd_p[~valid]).all())
 
 
-def test_score_kernel_matches_twin(dev):
-    """Counts equal bit for bit (the kernel rounds in the twin's order)."""
-    gen = torch.Generator().manual_seed(2)
-    s, n, h = 6, 150, 90
-    pts3d = (torch.rand(s, n, 3, generator=gen) - 0.5) * 0.1
-    uv = pts3d[..., :2] / (pts3d[..., 2:] + 0.5) * 600 + 209.5 + torch.randn(s, n, 2, generator=gen)
-    rs = torch.eye(3) + 0.02 * torch.randn(s, h, 3, 3, generator=gen)
-    ts = torch.tensor([0.0, 0.0, 0.5]) + 0.004 * torch.randn(s, h, 3, generator=gen)
-    valid = (torch.rand(s, n, generator=gen) > 0.1).float()
-    k_f = torch.full((s, 2), 600.0)
-    k_c = torch.full((s, 2), 209.5)
-    ops = pnp._score_inputs(*(t.to(dev) for t in (uv, pts3d, valid, rs, ts, k_f, k_c)), 10.0)
-    got = pnp.score_hypotheses(*ops)
-    np.testing.assert_array_equal(got.cpu().numpy(), pnp.score_hypotheses_plain(*ops).cpu().numpy())
-    assert float(got.max()) > 0
+def score_problem(s, n, h, seed=2):
+    """Raw scorer operands near a pose at 0.5 m (f 600, c 209.5, 30%
+    outliers, 85% valid). Set 0 has no valid point; every third hypothesis
+    of set 1 is ransac_pnp's sanitized identity (R = I, t = (0, 0, 1)); the
+    last set's hypotheses are lane-major (the DLT's layout), so rs and ts
+    reach the kernel strided."""
+    from foundpose_torch.benchmarks.score_time import score_operands
+
+    ops = score_operands(s, n, h, seed=seed, device="cpu")
+    ops["validf"][0] = 0.0
+    if s > 1:
+        ops["rs"][1, ::3] = torch.eye(3)
+        ops["ts"][1, ::3] = torch.tensor([0.0, 0.0, 1.0])
+    ops["rs"] = ops["rs"].permute(2, 3, 0, 1).contiguous().permute(2, 3, 0, 1)
+    ops["ts"] = ops["ts"].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    return ops
+
+
+@pytest.mark.parametrize("s,n,h", [(80, 300, 200), (80, 300, 400), (4, 300, 1), (4, 300, 37),
+                                   (4, 7, 64), (4, 301, 64), (3, 1100, 50)])
+def test_score_kernel_matches_twin(dev, s, n, h):
+    """Counts equal bit for bit (the kernel folds and rounds in the twin's
+    order) at the lmo.json and lmo_exact.json shapes, one hypothesis, a
+    ragged tile (37), fewer points than warps (7), a ragged warp split
+    (301) and more points than one shared-memory chunk (1100)."""
+    ops = {k: v.to(dev) for k, v in score_problem(s, n, h).items()}
+    before = pnp.score_hypotheses.launches
+    got = pnp.score_hypotheses(**ops, inlier_thresh=10.0)
+    assert pnp.score_hypotheses.launches == before + 1
+    assert not ops["rs"].is_contiguous() and not ops["ts"].is_contiguous()
+    ref = pnp.score_hypotheses_plain(**ops, inlier_thresh=10.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    assert float(got[0].abs().max()) == 0.0 and float(got.max()) > 0
+
+
+def test_ransac_pnp_launches_the_scorer_once(dev):
+    """One scorer launch a ransac_pnp call, whatever the number of sets."""
+    ops = score_problem(6, 120, 50)
+    args = [ops[k].to(dev) for k in ("pts2d", "pts3d")]
+    valid = ops["validf"].to(dev) > 0
+    before = pnp.score_hypotheses.launches
+    res = pnp.ransac_pnp(*args, valid, ops["k_f"].to(dev), ops["k_c"].to(dev),
+                         num_hypotheses=50, generator=torch.Generator(device=dev).manual_seed(0))
+    assert pnp.score_hypotheses.launches == before + 1
+    assert bool(res.success[1:].all()) and not bool(res.success[0])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])

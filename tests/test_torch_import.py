@@ -82,6 +82,17 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, isolated):
     assert '"ok"' not in proc.stdout
 
 
+@pytest.mark.parametrize("loader", ["make_repre", "load_repre"])
+def test_repre_loaders_default_to_the_card(loader):
+    """The representation loaders are entry points: they put the
+    representation on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from foundpose_torch import repre
+
+    assert inspect.signature(getattr(repre, loader)).parameters["device"].default == "cuda"
+
+
 def test_inference_config_from_lmo_json():
     from foundpose_torch.pipeline import inference
 

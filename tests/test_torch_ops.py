@@ -150,7 +150,7 @@ def test_load_repre_reads_jax_save_repre(tmp_path, rng):
         raw_projector=pca, extractor_name="dinov2_vits14-reg", feat_mask=mask,
     )
     j_repre.save_repre(ref, str(tmp_path))
-    got = t_repre.load_repre(str(tmp_path))
+    got = t_repre.load_repre(str(tmp_path), device="cpu")
     for name in ("vertices", "feat_vectors", "feat_to_template_ids", "feat_mask",
                  "word_centroids", "word_idfs", "template_descs", "bank_feats",
                  "bank_vertices", "bank_mask"):

@@ -126,25 +126,39 @@ def pnp_problem(rng, n, noise=0.5, outlier_frac=0.3, sets=1):
     return np.stack(p2), np.stack(p3), np.stack(rs), np.stack(ts), k_f, k_c
 
 
-def test_score_twin_matches_pallas_kernel(rng):
-    """Inlier counts equal for every hypothesis."""
-    p2, p3, r, t, k_f, k_c = pnp_problem(rng, 80)
-    h = 64
-    rs = (r[0] + rng.normal(0, 0.02, (h, 3, 3))).astype(np.float32)
-    ts = (t[0] + rng.normal(0, 0.004, (h, 3))).astype(np.float32)
-    valid = rng.uniform(size=80) > 0.1
-    with pltpu.force_tpu_interpret_mode():
-        ref = j_pnp.score_hypotheses_fused(
-            jnp.asarray(p2[0]), jnp.asarray(p3[0]), jnp.asarray(valid, jnp.float32),
-            jnp.asarray(rs), jnp.asarray(ts), jnp.asarray(k_f), jnp.asarray(k_c), 10.0,
-        )
-    ops = t_pnp._score_inputs(
-        T(p2), T(p3), T(valid[None].astype(np.float32)), T(rs[None]), T(ts[None]),
-        T(k_f[None]), T(k_c[None]), 10.0,
+@pytest.mark.parametrize("case", ["h64", "h37", "behind_camera", "no_valid_point"])
+def test_score_twin_matches_pallas_kernel(rng, case):
+    """Inlier counts equal for every hypothesis, from the raw operands, on
+    three sets scored in one call and held set by set against the Pallas
+    kernel. H 37 is a ragged hypothesis tile; the last set's hypotheses sit
+    behind the camera (cam_z < 0) or its mask is empty, and count 0."""
+    sets, n = 3, 80
+    h = 37 if case == "h37" else 64
+    p2, p3, r, t, k_f, k_c = pnp_problem(rng, n, sets=sets)
+    rs = (r[:, None] + rng.normal(0, 0.02, (sets, h, 3, 3))).astype(np.float32)
+    ts = (t[:, None] + rng.normal(0, 0.004, (sets, h, 3))).astype(np.float32)
+    valid = rng.uniform(size=(sets, n)) > 0.1
+    if case == "behind_camera":
+        ts[-1, :, 2] = -0.5
+    if case == "no_valid_point":
+        valid[-1] = False
+    validf = valid.astype(np.float32)
+    thr = 10.0
+    got = t_pnp.score_hypotheses(
+        T(p2), T(p3), T(validf), T(rs), T(ts), T(np.tile(k_f, (sets, 1))),
+        T(np.tile(k_c, (sets, 1))), thr,
     )
-    got = t_pnp.score_hypotheses(*ops)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
-    assert 0 < float(got.max()) <= valid.sum()
+    assert got.shape == (sets, h)
+    for i in range(sets):
+        with pltpu.force_tpu_interpret_mode():
+            ref = j_pnp.score_hypotheses_fused(
+                jnp.asarray(p2[i]), jnp.asarray(p3[i]), jnp.asarray(validf[i]),
+                jnp.asarray(rs[i]), jnp.asarray(ts[i]), jnp.asarray(k_f), jnp.asarray(k_c), thr,
+            )
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref))
+    assert 0 < float(got[0].max()) <= valid[0].sum()
+    if case in ("behind_camera", "no_valid_point"):
+        assert float(got[-1].abs().max()) == 0.0
 
 
 def jax_draws(key, h, n):
