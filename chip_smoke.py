@@ -40,6 +40,16 @@ Phases (each prints one line and raises on failure):
      request with the same draws.
   6  the int8/bf16 GEMM probe through its entry point
      (foundpose_torch.benchmarks.micro_int8.run).
+  7  the main path at configs/infer/lmo_refine.json (lmo.json plus
+     featuremetric refinement, 8 LM steps on each crop's winner): phase 3's
+     requests, timing and checks, with the refinement split out of the
+     solve stage; torch.profiler over one request beside phase 3's, and
+     over the refinement alone (its device time, ops and host launch
+     calls); no host sync inside the refinement (CUDA sync debug mode).
+  8  lmo_refine.json on a world whose feature maps carry sub-cell signal
+     (descriptors splatted bilinearly around their true projections): card
+     against CPU (template ids, success, R and t), refined against coarse
+     error on the card, both scored by the port's BOP19 AR (MSSD, MSPD).
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -60,6 +70,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LMO_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo.json")
 LMO_EXACT_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo_exact.json")
+LMO_REFINE_CONFIG = os.path.join(ROOT, "configs", "infer", "lmo_refine.json")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # LM-O's camera (BOP lmo camera.json), for the serving phase's 640x480 image.
 LMO_K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]])
@@ -84,6 +95,12 @@ BUDDIES_CD_ATOL = 1e-4
 # differs near a rounding boundary can round to another bf16.
 ATTN_REL_L2 = {"f32": 1e-5, "bf16": 1e-3}
 PROBE_BF16_REL_L2 = 1e-5  # int8 must be exact
+# Phase 8, card against CPU under lmo_refine.json: the refined poses differ
+# by the f32 rounding of the normal equations (summed in another order on
+# the card), carried through 8 LM steps; measured 2.4e-7 in R and 6e-8 m in
+# t on an H100 80GB HBM3 (700 W). A step accepted on one side and not the
+# other would differ by far more than these bounds.
+REFINE_WORLD_R_ATOL, REFINE_WORLD_T_ATOL = 1e-4, 1e-5
 
 # Phase 3 serves windows of WARM_WINDOW requests until two window medians in
 # a row agree within WARM_SETTLE (the first requests of a process run slower),
@@ -459,12 +476,17 @@ def main_path_inputs(torch, device, b=16):
     return crops, masks, cams
 
 
+STAGES = ("vit", "retrieval", "buddies", "solve", "refine")
+
+
 def stage_split(torch, model, repre, config, crops, masks, cams, gen):
-    """Milliseconds of the four stages of one request, by CUDA events."""
+    """Milliseconds of the stages of one request, by CUDA events: the four
+    of the coarse step, then, under a refining configuration, the
+    featuremetric refinement on its own after the solve without it."""
     from foundpose_torch.models import dinov2
     from foundpose_torch.pipeline import inference
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     ev[0].record()
     images = inference.preprocess_crops(crops, config)
     fm = dinov2.extract_facet(model, images)["feature_maps"].float()
@@ -473,13 +495,32 @@ def stage_split(torch, model, repre, config, crops, masks, cams, gen):
     ev[2].record()
     cors = inference.match_batch(feats, valid, tids, tsc, repre, config)
     ev[3].record()
-    inference.solve_batch(valid, tids, tsc, cors, cams, config, generator=gen)
+    coarse = dataclasses.replace(config, refine_featuremetric=False)
+    out = inference.solve_batch(fm, valid, tids, tsc, cors, cams, repre, coarse, generator=gen)
     ev[4].record()
-    ev[4].synchronize()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    if config.refine_featuremetric:
+        refine_stage(repre, config, fm, cams, out)()
+    ev[5].record()
+    ev[5].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(5 if config.refine_featuremetric else 4)]
 
 
-def phase_main_path(torch, model, repre, config, device):
+def refine_stage(repre, config, fm, cams, coarse_out):
+    """The featuremetric stage of a request as a call: the winners of the
+    coarse step `coarse_out` refined against the feature maps `fm`."""
+    from foundpose_torch.ops.pca import pca_transform
+    from foundpose_torch.pipeline import inference
+
+    best = coarse_out.best_template
+    return lambda: inference.featuremetric_winner(
+        coarse_out.R_m2c, coarse_out.t_m2c, cams.f.float(), cams.c.float(), config, fm,
+        lambda x: pca_transform(repre.raw_projector, x),
+        lambda: (repre.bank_vertices[best], repre.bank_feats[best], repre.bank_mask[best]),
+    )
+
+
+def phase_main_path(torch, model, repre, config, device, phase=3, label="lmo.json",
+                    table="profile.txt"):
     """Serves requests in windows of WARM_WINDOW until two window medians in
     a row agree within WARM_SETTLE (at most WARM_MAX_WINDOWS windows), then
     times TIMED_REQUESTS requests."""
@@ -521,8 +562,7 @@ def phase_main_path(torch, model, repre, config, device):
 
     splits = np.array([stage_split(torch, model, repre, config, crops, masks, cams, rgen)
                        for _ in range(5)])
-    stages = dict(zip(("vit", "retrieval", "buddies", "solve"),
-                      np.median(splits, axis=0).tolist()))
+    stages = dict(zip(STAGES, np.median(splits, axis=0).tolist()))
     q1, med, q3 = (float(v) for v in np.percentile(lat, [25, 50, 75]))
     res = dict(
         batch=b, timed_requests=TIMED_REQUESTS, latency_s=lat, first_request_s=first,
@@ -531,7 +571,7 @@ def phase_main_path(torch, model, repre, config, device):
         stage_ms_median_of_5=stages, stage_ms_runs=splits.tolist(), peak_mem_bytes=peak,
         launches=launches, success_rate=float(outs.success.float().mean()),
     )
-    log(3, f"pose_from_crops batch {b} lmo.json: first request {first:.2f} s, warm-up "
+    log(phase, f"pose_from_crops batch {b} {label}: first request {first:.2f} s, warm-up "
            f"window medians ms " + ", ".join(f"{x * 1e3:.2f}" for x in warm_medians)
            + f" (settled within {WARM_SETTLE:.0%}: {settled}); {TIMED_REQUESTS} timed requests "
            f"ms median "
@@ -541,7 +581,7 @@ def phase_main_path(torch, model, repre, config, device):
            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
            + f", peak {peak / 2**20:.0f} MiB, launches {launches}")
     res["profile"] = profile_call(torch, lambda: inference.pose_from_crops(
-        model, crops, masks, cams, repre, config, generator=rgen), 3, "profile.txt")
+        model, crops, masks, cams, repre, config, generator=rgen), phase, table)
     return res
 
 
@@ -579,14 +619,15 @@ def profile_call(torch, fn, phase, table_name):
     return res
 
 
-def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32):
+def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32, n_points=200,
+               num_words=None):
     """The structured world of tests/test_pipeline.py: a point cloud whose
-    points carry unique descriptors, templates seeing subsets of it."""
+    points carry unique descriptors, templates seeing subsets of it (and as
+    many visual words as points unless `num_words` is given)."""
     from foundpose_torch.ops import tfidf
     from foundpose_torch.repre import make_repre
     from foundpose_torch.structs import PinholeCamera
 
-    n_points = 200
     obj_points = rng.uniform(-0.08, 0.08, size=(n_points, 3)).astype(np.float32)
     obj_feats = rng.normal(size=(n_points, feat_dim)).astype(np.float32) * 3.0
     tpl_point_ids = [rng.choice(n_points, size=pts_per_template, replace=False)
@@ -594,7 +635,7 @@ def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32):
     feat_vectors = np.concatenate([obj_feats[s] for s in tpl_point_ids])
     vertices = np.concatenate([obj_points[s] for s in tpl_point_ids])
     tpl_ids = np.repeat(np.arange(num_templates), pts_per_template).astype(np.int32)
-    words = obj_feats[rng.choice(n_points, size=n_points, replace=False)]
+    words = obj_feats[rng.choice(n_points, size=num_words or n_points, replace=False)]
     words = (words + 0.01 * rng.normal(size=words.shape)).astype(np.float32)
     cfg = tfidf.TfidfConfig(knn_k=3)
     descs, idfs = tfidf.calc_template_tfidf_descriptors(
@@ -625,6 +666,45 @@ def render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, target, r_gt,
             fmap[cy, cx] = f
             mask[cy * 14 : (cy + 1) * 14, cx * 14 : (cx + 1) * 14] = 1.0
     return fmap, mask
+
+
+def render_query_smooth(rng, obj_points, obj_feats, tpl_point_ids, target, pose_seed,
+                        feat_noise=0.1):
+    """A crop whose feature map carries sub-cell position signal (the port's
+    copy of benchmarks/cross_parity.render_query_smooth): each point's
+    descriptor, with noise, is splatted bilinearly into the 4 cells around
+    its true projection (pixel p -> map coordinate p / 14 - 0.5), under a
+    random pose from `pose_seed`. Returns (fmap [30, 30, D], mask, R, t)."""
+    from scipy.spatial.transform import Rotation
+
+    pr = np.random.default_rng(pose_seed)
+    r_gt = Rotation.from_rotvec(pr.uniform(-0.3, 0.3, 3)).as_matrix().astype(np.float32)
+    t_gt = np.array([pr.uniform(-0.02, 0.02), pr.uniform(-0.02, 0.02), pr.uniform(0.45, 0.6)],
+                    dtype=np.float32)
+    pts = obj_points[tpl_point_ids[target]]
+    feats = obj_feats[tpl_point_ids[target]]
+    cam = pts @ r_gt.T + t_gt
+    proj = cam[:, :2] / cam[:, 2:3] * 600.0 + 209.5
+    d = obj_feats.shape[1]
+    acc = np.zeros((30, 30, d))
+    wsum = np.zeros((30, 30))
+    for p, f in zip(proj, feats):
+        fn = f + feat_noise * rng.normal(size=d)
+        u, v = p[0] / 14.0 - 0.5, p[1] / 14.0 - 0.5
+        x0, y0 = int(np.floor(u)), int(np.floor(v))
+        fx, fy = u - x0, v - y0
+        for xi, yi, w in ((x0, y0, (1 - fx) * (1 - fy)), (x0 + 1, y0, fx * (1 - fy)),
+                          (x0, y0 + 1, (1 - fx) * fy), (x0 + 1, y0 + 1, fx * fy)):
+            if 0 <= xi < 30 and 0 <= yi < 30:
+                acc[yi, xi] += w * fn
+                wsum[yi, xi] += w
+    fmap = rng.normal(size=(30, 30, d)).astype(np.float32) * 0.05
+    mask = np.zeros((420, 420), dtype=np.float32)
+    covered = wsum > 0.05
+    fmap[covered] = (acc[covered] / wsum[covered, None]).astype(np.float32)
+    for cy, cx in zip(*np.nonzero(covered)):
+        mask[cy * 14 : (cy + 1) * 14, cx * 14 : (cx + 1) * 14] = 1.0
+    return fmap, mask, r_gt, t_gt
 
 
 def phase_world(torch, base_config, device):
@@ -680,6 +760,129 @@ def phase_world(torch, base_config, device):
     check(same_ids and same_success, "card and CPU disagree on templates or success")
     check(all(gpu["success"].tolist()), "a crop failed on the card")
     check(max(rot_err) < 6.0 and max(t_err) <= 0.02, "card pose off the ground truth")
+    return res
+
+
+def phase_refine(torch, model, repre, config, device, lmo):
+    """The main path at lmo_refine.json (phase 3's requests and checks),
+    then the refinement alone on one request's coarse winners: device time
+    under torch.profiler, CUDA-event time, and no host sync inside it."""
+    import warnings
+
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.pipeline import inference
+
+    res = phase_main_path(torch, model, repre, config, device, 7, "lmo_refine.json",
+                          "profile_refine.txt")
+    crops, masks, cams = main_path_inputs(torch, device)
+    fm = dinov2.extract_facet(model, inference.preprocess_crops(crops, config))["feature_maps"].float()
+    feats, valid, tids, tsc = inference.retrieve_batch(fm, masks, repre, config)
+    cors = inference.match_batch(feats, valid, tids, tsc, repre, config)
+    coarse = inference.solve_batch(
+        fm, valid, tids, tsc, cors, cams, repre,
+        dataclasses.replace(config, refine_featuremetric=False),
+        generator=torch.Generator(device=device).manual_seed(1))
+    stage = refine_stage(repre, config, fm, cams, coarse)
+    r, t = stage()
+    check(bool(torch.isfinite(r).all() and torch.isfinite(t).all()), "refined pose not finite")
+    moved = int(((r != coarse.R_m2c).flatten(1).any(1) | (t != coarse.t_m2c).any(1)).sum())
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            stage()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # The mode's own notice ("a prototype feature ...") is not a sync.
+    syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+    res["refine_stage_ms"] = cuda_ms(torch, stage, reps=10)
+    res["refine_stage_profile"] = profile_call(torch, stage, 7, "profile_refine_stage.txt")
+    res["refine_host_syncs"] = len(syncs)
+    res["refine_crops_moved"] = moved
+    p, q = res["profile"], lmo["profile"]
+    rp = res["refine_stage_profile"]
+    log(7, f"one request lmo_refine.json vs lmo.json (torch.profiler): device busy "
+           f"{p['device_busy_s'] * 1e3:.3f} vs {q['device_busy_s'] * 1e3:.3f} ms, device ops "
+           f"{p['device_ops']} vs {q['device_ops']}, host launch calls {p['host_launch_calls']} vs "
+           f"{q['host_launch_calls']}; refinement alone ({config.featuremetric_iters} LM steps, "
+           f"{len(fm)} crops): device {rp['device_busy_s'] * 1e3:.3f} ms, {rp['device_ops']} device "
+           f"ops, {rp['host_launch_calls']} host launch calls, {res['refine_stage_ms']:.2f} ms by "
+           f"CUDA events; host syncs inside it {len(syncs)} (tol 0); the refinement moved "
+           f"{moved} of {len(fm)} coarse winners")
+    check(not syncs, f"the refinement synchronised with the host: {syncs[:3]}")
+    return res
+
+
+def phase_world_refine(torch, config, device):
+    """lmo_refine.json on the splatted world: 30 crops of a 24-template
+    object at random poses, the same draws on the card with refinement on
+    and off and on the CPU with it on."""
+    from foundpose_torch import geometry
+    from foundpose_torch.eval import bop_ar
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.structs import PinholeCamera
+
+    rng = np.random.default_rng(0)
+    n_tpl, b = 24, 30
+    repre, obj_points, obj_feats, tpl_point_ids = make_world(
+        torch, rng, num_templates=n_tpl, pts_per_template=120, feat_dim=48, n_points=800,
+        num_words=256)
+    fm, mk, rs_gt, ts_gt = zip(*(render_query_smooth(rng, obj_points, obj_feats, tpl_point_ids,
+                                                     i % n_tpl, 2000 + i) for i in range(b)))
+    draws = torch.as_tensor(rng.integers(
+        0, config.top_k_buddies, size=(b, config.top_n_templates, config.pnp_ransac_iter, 6)))
+    cams = PinholeCamera(
+        f=torch.full((b, 2), 600.0), c=torch.full((b, 2), 209.5),
+        T_world_from_eye=torch.eye(4).expand(b, 4, 4).contiguous(), width=420, height=420,
+    )
+    args = (torch.as_tensor(np.stack(fm)), torch.as_tensor(np.stack(mk)), cams,
+            repre.cast_banks(config.compute_dtype))
+
+    def run(dev, cfg):
+        moved = [a.to(dev) for a in args]
+        out = inference.pose_from_features(*moved, cfg, draws=draws.to(dev))
+        return {k: v.cpu() for k, v in dataclasses.asdict(out).items()}
+
+    on = run(device, config)
+    off = run(device, dataclasses.replace(config, refine_featuremetric=False))
+    cpu = run("cpu", config)
+    same_ids = bool((on["template_ids"] == cpu["template_ids"]).all())
+    same_success = bool((on["success"] == cpu["success"]).all())
+    dr = float((on["R_m2c"] - cpu["R_m2c"]).abs().max())
+    dt = float((on["t_m2c"] - cpu["t_m2c"]).abs().max())
+    r_gt, t_gt = torch.as_tensor(np.stack(rs_gt)), torch.as_tensor(np.stack(ts_gt))
+    k = np.array([[600.0, 0, 209.5], [0, 600.0, 209.5], [0, 0, 1]])
+    pts = obj_points[:: max(1, len(obj_points) // 400)].astype(np.float64)
+    dia = float(np.linalg.norm(pts.max(0) - pts.min(0)))
+    gts = [bop_ar.GroundTruth(1, i, 7, rs_gt[i].astype(np.float64), ts_gt[i].astype(np.float64))
+           for i in range(b)]
+    res = dict(crops=b, templates=n_tpl, same_template_ids=same_ids, same_success=same_success,
+               max_abs_R_gpu_vs_cpu=dr, max_abs_t_gpu_vs_cpu=dt)
+    for name, out in (("on", on), ("off", off)):
+        succ = out["success"]
+        rot = geometry.rotation_error_deg(out["R_m2c"], r_gt)[succ]
+        terr = torch.linalg.vector_norm(out["t_m2c"] - t_gt, dim=-1)[succ] * 1000.0
+        ests = [bop_ar.Estimate(1, i, 7, 1.0, out["R_m2c"][i].double().numpy(),
+                                out["t_m2c"][i].double().numpy()) for i in range(b) if succ[i]]
+        ar = bop_ar.evaluate_ar(ests, gts, {7: pts}, {7: dia}, {7: [(np.eye(3), np.zeros(3))]},
+                                {(1, i): k for i in range(b)}, image_width=420)
+        res[name] = dict(successes=int(succ.sum()), median_rot_err_deg=float(rot.median()),
+                         median_t_err_mm=float(terr.median()), **ar)
+    on_, off_ = res["on"], res["off"]
+    log(8, f"splatted world, {b} crops, lmo_refine.json: card vs CPU template ids equal {same_ids}, "
+           f"success equal {same_success}, |R| {dr:.2e} (tol {REFINE_WORLD_R_ATOL}), |t| {dt:.2e} "
+           f"(tol {REFINE_WORLD_T_ATOL}); on the card, refinement off -> on: successes "
+           f"{off_['successes']} -> {on_['successes']}, median rot {off_['median_rot_err_deg']:.3f} -> "
+           f"{on_['median_rot_err_deg']:.3f} deg, median t {off_['median_t_err_mm']:.2f} -> "
+           f"{on_['median_t_err_mm']:.2f} mm; BOP19 AR (eval.bop_ar, MSSD/MSPD) "
+           f"{off_['bop_ar']:.4f} -> {on_['bop_ar']:.4f} (AR_MSSD {off_['ar_mssd']:.4f} -> "
+           f"{on_['ar_mssd']:.4f}, AR_MSPD {off_['ar_mspd']:.4f} -> {on_['ar_mspd']:.4f})")
+    check(same_ids and same_success, "card and CPU disagree on templates or success")
+    check(dr <= REFINE_WORLD_R_ATOL and dt <= REFINE_WORLD_T_ATOL, "card and CPU refined poses differ")
+    check(off_["successes"] >= 20, f"only {off_['successes']} coarse successes of {b}")
+    check(on_["median_rot_err_deg"] <= off_["median_rot_err_deg"]
+          and on_["median_t_err_mm"] <= off_["median_t_err_mm"], "refinement made the poses worse")
     return res
 
 
@@ -795,8 +998,7 @@ def phase_serving(torch, params, device):
     crops, crop_masks = engine._warp(img, masks, src_cam, dst)
     splits = np.array([stage_split(torch, engine.model, engine._repres[1], config, crops,
                                    crop_masks.float(), dst, engine.generator) for _ in range(5)])
-    res["stage_ms_median_of_5"] = dict(zip(("vit", "retrieval", "buddies", "solve"),
-                                           np.median(splits, axis=0).tolist()))
+    res["stage_ms_median_of_5"] = dict(zip(STAGES, np.median(splits, axis=0).tolist()))
     log(5, f"stages ms (median of 5): warp {res['warp_ms']:.2f}, "
            + ", ".join(f"{k} {v:.2f}" for k, v in res["stage_ms_median_of_5"].items()))
 
@@ -905,6 +1107,16 @@ def main():
         with open(LMO_EXACT_CONFIG) as f:
             exact_config = inference.inference_config_from_opts(json.load(f))
         report["world_exact"] = phase_world(torch, exact_config, device)
+        with open(LMO_REFINE_CONFIG) as f:
+            refine_opts = json.load(f)
+        refine_config = inference.inference_config_from_opts(refine_opts)
+        check(refine_config.refine_featuremetric
+              and refine_config == dataclasses.replace(config, refine_featuremetric=True)
+              and inference.vit_config_from_opts(refine_opts) == vit_cfg,
+              "lmo_refine.json is not lmo.json with refinement on")
+        report["main_path_refine"] = phase_refine(torch, model, repre, refine_config, device,
+                                                  report["main_path"])
+        report["world_refine"] = phase_world_refine(torch, refine_config, device)
         del model, repre
         report["serving"] = phase_serving(torch, params, device)
         report["probe"] = phase_probe(torch)

@@ -52,7 +52,7 @@ class PoseEngine:
         `seed` (bench_weights.init_params)."""
         if mesh_shape:
             raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP.md Queue 1 item 13)"
+                "multi-device serving is not ported yet (ROADMAP.md Queue 1 item 5)"
             )
         self.device = torch.device(device)
         self.vit_cfg = dinov2.parse_model_name(extractor_name)

@@ -31,3 +31,13 @@ def pca_transform(pca: PCA, x: torch.Tensor) -> torch.Tensor:
     if pca.whiten:
         out = out / torch.sqrt(torch.clamp_min(pca.explained_variance, 1e-12))
     return out
+
+
+def pca_transform_gathered(pca: PCA, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Projects x [B, ..., D], item i by projector idx[i] of a stacked PCA
+    (mean [O, D], components [O, C, D]) -> [B, ..., C] in f32."""
+    flat = x.reshape(x.shape[0], -1, x.shape[-1])
+    out = torch.einsum("bqd,bcd->bqc", flat - pca.mean[idx][:, None], pca.components[idx])
+    if pca.whiten:
+        out = out / torch.sqrt(torch.clamp_min(pca.explained_variance[idx], 1e-12))[:, None]
+    return out.reshape(*x.shape[:-1], out.shape[-1])

@@ -7,6 +7,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from foundpose_torch.ops.warp import bilinear_sample
+
 
 def grid_points(grid_size: Tuple[int, int], cell_size: float, device=None) -> torch.Tensor:
     """[(W/cell)*(H/cell), 2] (x, y) cell centres, row-major over y then x."""
@@ -33,18 +35,38 @@ def points_in_mask(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return in_canvas & on_mask
 
 
+def sample_feature_map(
+    feature_map_hwc: torch.Tensor, points: torch.Tensor, image_size: Tuple[int, int]
+) -> torch.Tensor:
+    """Bilinear features of an [Hf, Wf, C] map at image-space points
+    [..., 2], or of a batch [B, Hf, Wf, C] at [B, ..., 2] -> [(B,) ..., C].
+
+    grid_sample's align_corners=False convention over a map coarser than
+    the image: image coordinate p maps to map coordinate p * (fm / image) -
+    0.5, zero outside the map. image_size is (width, height).
+    """
+    hf, wf = feature_map_hwc.shape[-3], feature_map_hwc.shape[-2]
+    iw, ih = image_size
+    scale = torch.tensor([wf / iw, hf / ih], dtype=points.dtype, device=points.device)
+    return bilinear_sample(feature_map_hwc, points * scale - 0.5)
+
+
 def sample_grid_features(
     feature_map_hwc: torch.Tensor,
     points: torch.Tensor,
     image_size: Tuple[int, int],
     cell_size: float,
 ) -> torch.Tensor:
-    """Features [..., Q, C] of a [..., Hf, Wf, C] map at the regular query
-    grid of `grid_points(image_size, cell_size)`.
+    """Features [..., Q, C] of a [..., Hf, Wf, C] map at the [Q, 2] points.
 
-    When the grid matches the feature map one cell per texel (stride-14
-    DINOv2 on 14-px cells, the shipped configurations) every cell centre
-    lands on a texel and sampling is a reshape.
+    PRECONDITION for the fast path: `points` is the row-major grid of
+    `grid_points(image_size, cell_size)`; the port does not inspect the
+    values (that would cost a device-to-host copy a request), so callers
+    with other points of the same count call `sample_feature_map`. When the
+    grid matches the map one cell per texel (stride-14 DINOv2 on 14-px
+    cells, the shipped configurations) every cell centre lands on a texel
+    and sampling is a reshape; otherwise the points are sampled
+    bilinearly.
     """
     hf, wf = feature_map_hwc.shape[-3], feature_map_hwc.shape[-2]
     cols = int(image_size[0] / cell_size)
@@ -58,10 +80,9 @@ def sample_grid_features(
         return feature_map_hwc.reshape(
             *feature_map_hwc.shape[:-3], rows * cols, feature_map_hwc.shape[-1]
         )
-    raise NotImplementedError(
-        "bilinear feature sampling off the texel grid (foundpose_tpu/ops/"
-        "warp.py) is not ported yet; ROADMAP.md Queue 1 lists it"
-    )
+    if feature_map_hwc.dim() == 4:
+        points = points.expand(feature_map_hwc.shape[0], *points.shape)
+    return sample_feature_map(feature_map_hwc, points, image_size)
 
 
 def subsample_points(

@@ -58,9 +58,13 @@ def _nearest(image, xy, fill_value, batch=None):
 
 def bilinear_sample(image: torch.Tensor, xy: torch.Tensor, fill_value: float = 0.0) -> torch.Tensor:
     """Bilinear samples of an [H, W] or [H, W, C] image at float pixel
-    coordinates xy [..., 2] -> [...] or [..., C]."""
+    coordinates xy [..., 2] -> [...] or [..., C]; of a batch [N, H, W, C]
+    at xy [N, ..., 2], each image at its own points -> [N, ..., C]."""
     if image.dim() == 2:
         return _bilinear(image[..., None], xy, fill_value)[..., 0]
+    if image.dim() == 4:
+        batch = torch.arange(image.shape[0], device=image.device)
+        return _bilinear(image, xy, fill_value, batch.reshape(-1, *[1] * (xy.dim() - 2)))
     return _bilinear(image, xy, fill_value)
 
 

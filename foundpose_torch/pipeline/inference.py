@@ -3,7 +3,7 @@ foundpose_tpu/pipeline/inference.py).
 
     DINOv2 features -> masked query grid -> PCA -> tf-idf retrieval ->
     cyclic-buddy matching -> RANSAC-PnP -> best-template selection ->
-    LO + LM on the winner -> world-frame poses
+    LO + LM (+ featuremetric) on the winner -> world-frame poses
 
 Each stage is a plain function over the whole crop batch. On a GPU the
 kernels of the configured path run (ops/vit_block or ops/attention,
@@ -25,10 +25,11 @@ import torch
 from foundpose_torch import geometry
 from foundpose_torch.models import dinov2
 from foundpose_torch.ops import sampling
-from foundpose_torch.ops.pca import pca_transform
+from foundpose_torch.ops.pca import pca_transform, pca_transform_gathered
 from foundpose_torch.ops.tfidf import tfidf_retrieve
 from foundpose_torch.pose import corresp as corresp_mod
 from foundpose_torch.pose import pnp as pnp_mod
+from foundpose_torch.pose.featuremetric import refine_pose_featuremetric
 from foundpose_torch.repre import ObjectRepre
 from foundpose_torch.structs import PinholeCamera
 
@@ -50,6 +51,7 @@ class InferenceConfig:
     lm_iters: int = 10
     pnp_lo_iters: int = 2
     refine_featuremetric: bool = False
+    featuremetric_iters: int = 8
     compute_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -57,10 +59,6 @@ class InferenceConfig:
             raise ValueError(
                 f"pnp_select_iter={self.pnp_select_iter} must be 0 (single-pass) "
                 f"or in (0, pnp_ransac_iter={self.pnp_ransac_iter})"
-            )
-        if self.refine_featuremetric:
-            raise NotImplementedError(
-                "featuremetric refinement is not ported yet (ROADMAP.md Queue 1)"
             )
 
 
@@ -84,6 +82,7 @@ def inference_config_from_opts(opts: Dict[str, Any]) -> InferenceConfig:
         pnp_refine_lm=bool(o.get("pnp_refine_lm", True)),
         pnp_lo_iters=int(o.get("pnp_lo_iters", 2)),
         refine_featuremetric=bool(o.get("refine_featuremetric", False)),
+        featuremetric_iters=int(o.get("featuremetric_iters", 8)),
         compute_dtype=_DTYPES[o.get("compute_dtype", "float32")],
     )
 
@@ -233,10 +232,17 @@ def full_budget_winner(
 
 
 def refine_winner(r_best, t_best, inliers_best, count_best, c2d, c3d, cvalid,
-                  cam_f, cam_c, config: InferenceConfig):
-    """Winner-only LO-RANSAC, then LM kept where finite. Returns (R, t,
-    count) with the post-LO base-threshold inlier count, so success and
-    quality describe the emitted pose."""
+                  cam_f, cam_c, config: InferenceConfig, fmap=None, project=None,
+                  winner_bank=None):
+    """Winner-only LO-RANSAC, then LM kept where finite, then (when
+    configured) featuremetric refinement. Returns (R, t, count) with the
+    post-LO base-threshold inlier count, so success and quality describe
+    the emitted pose.
+
+    fmap [B, Hf, Wf, D_raw]: the crops' raw f32 feature maps; project: the
+    PCA projection for them, or None; winner_bank: () -> (vertices, feats,
+    mask) of each crop's winning template. The three are used only by the
+    featuremetric stage, which refines every crop, failed ones included."""
     c2d = c2d.float()
     c3d = c3d.float()
     if config.pnp_lo_iters > 0:
@@ -249,28 +255,53 @@ def refine_winner(r_best, t_best, inliers_best, count_best, c2d, c3d, cvalid,
         r_best, t_best = pnp_mod.refine_pose_lm_guarded(
             r_best, t_best, c2d, c3d, inliers_best, cam_f, cam_c, iters=config.lm_iters
         )
+    if config.refine_featuremetric:
+        r_best, t_best = featuremetric_winner(
+            r_best, t_best, cam_f, cam_c, config, fmap, project, winner_bank
+        )
     return r_best, t_best, count_best
 
 
+def featuremetric_winner(r_best, t_best, cam_f, cam_c, config: InferenceConfig, fmap,
+                         project=None, winner_bank=None):
+    """The featuremetric stage of refine_winner: the raw maps projected
+    (when `project` is given), maps and bank descriptors cast to the
+    compute dtype, config.featuremetric_iters LM steps. Returns (R, t)."""
+    cdt = config.compute_dtype
+    fmap_proj = fmap if project is None else project(fmap)
+    verts, feats, mask = winner_bank()
+    r_best, t_best, _ = refine_pose_featuremetric(
+        r_best, t_best, fmap_proj.to(cdt), cam_f, cam_c, verts, feats.to(cdt), mask,
+        crop_size=config.crop_size, iters=config.featuremetric_iters,
+    )
+    return r_best, t_best
+
+
 def solve_batch(
+    feature_maps: torch.Tensor,
     valid_b: torch.Tensor,
     template_ids_b: torch.Tensor,
     template_scores_b: torch.Tensor,
     cors_b: corresp_mod.Correspondences,
     cameras: PinholeCamera,
+    repre: ObjectRepre,
     config: InferenceConfig,
     draws: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    obj_idx: Optional[torch.Tensor] = None,
 ) -> PoseOutputs:
     """Stage C: RANSAC-PnP over every (crop, template) set in one batch,
     best-by-inlier-count selection, winner refinement, world frame.
+
+    feature_maps [B, Hf, Wf, D_raw] and the repre's projector and banks
+    feed featuremetric refinement only. With obj_idx [B], `repre` is a
+    stacked multi-object repre and crop i uses object obj_idx[i].
 
     Selection compares inlier counts where RANSAC succeeded (-1 elsewhere)
     and takes the first maximum. The two-phase second pass keeps the full
     pass where full.quality >= the winner's without masking on its success,
     as the JAX package does (ROADMAP.md Queue 3, fault (a))."""
     b, n = template_ids_b.shape
-    k = cors_b.coord_2d.shape[2]
     dev = valid_b.device
     cam_f = cameras.f.float()
     cam_c = cameras.c.float()
@@ -302,8 +333,20 @@ def solve_batch(
         pick(res.R), pick(res.t), pick(res.inliers), pick(res.quality),
         c2d, c3d, cvalid, cam_f, cam_c, config, generator,
     )
+    best_tid = template_ids_b[ar, best]
+    proj = repre.raw_projector
+    if obj_idx is None:
+        tpl = (best_tid,)
+        project = None if proj is None else (lambda x: pca_transform(proj, x))
+    else:
+        tpl = (obj_idx, best_tid)
+        project = None if proj is None else (lambda x: pca_transform_gathered(proj, obj_idx, x))
     r_best, t_best, count_best = refine_winner(
-        r_best, t_best, inliers_best, quality_best, c2d, c3d, cvalid, cam_f, cam_c, config
+        r_best, t_best, inliers_best, quality_best, c2d, c3d, cvalid, cam_f, cam_c, config,
+        fmap=feature_maps, project=project,
+        winner_bank=lambda: (
+            repre.bank_vertices[tpl], repre.bank_feats[tpl], repre.bank_mask[tpl]
+        ),
     )
     num_grid = int(config.crop_size[0] / config.grid_cell_size) * int(
         config.crop_size[1] / config.grid_cell_size
@@ -324,7 +367,7 @@ def solve_batch(
         score=score,
         template_ids=template_ids_b,
         template_scores=template_scores_b,
-        best_template=template_ids_b[ar, best],
+        best_template=best_tid,
         per_template_quality=per_tpl_quality,
         num_queries=valid_b.float().sum(-1),
         best_corresp_2d=c2d,
@@ -355,7 +398,8 @@ def pose_from_features(
     )
     cors_b = match_batch(feats_b, valid_b, tids_b, tscores_b, repre, config)
     return solve_batch(
-        valid_b, tids_b, tscores_b, cors_b, cameras, config, draws, generator
+        feature_maps, valid_b, tids_b, tscores_b, cors_b, cameras, repre, config, draws,
+        generator,
     )
 
 

@@ -5,10 +5,10 @@ The object representations are stacked into one padded repre
 (repre.stack_repres) and every crop carries its object index. Where the JAX
 package vmaps a per-crop function that gathers its object's tables, each
 table here is gathered once for the whole batch ([B, ...] word centroids,
-idfs, template descriptors) or indexed by (object, template) inside the
-correspondence search, and the solve is inference.solve_batch unchanged:
-the RANSAC draws of crop i are the same in the single- and multi-object
-steps.
+idfs, template descriptors, PCA projectors) or indexed by (object,
+template) inside the correspondence search and the featuremetric winner
+bank, and the solve is inference.solve_batch: the RANSAC draws of crop i
+are the same in the single- and multi-object steps.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from foundpose_torch.models import dinov2
 from foundpose_torch.ops import sampling
+from foundpose_torch.ops.pca import pca_transform_gathered
 from foundpose_torch.ops.tfidf import tfidf_retrieve
 from foundpose_torch.pipeline import inference
 from foundpose_torch.pose import corresp as corresp_mod
@@ -45,13 +46,8 @@ def pose_from_features_multi(
     )
     if config.max_num_queries < points.shape[0]:
         valid = sampling.subsample_points(valid, config.max_num_queries, generator)
-    proj = multi_repre.raw_projector
-    if proj is not None:
-        feats = torch.einsum(
-            "bqd,bcd->bqc", feats - proj.mean[oi][:, None], proj.components[oi]
-        )
-        if proj.whiten:
-            feats = feats / torch.sqrt(torch.clamp_min(proj.explained_variance[oi], 1e-12))[:, None]
+    if multi_repre.raw_projector is not None:
+        feats = pca_transform_gathered(multi_repre.raw_projector, oi, feats)
     feats = feats.to(config.compute_dtype)
     tmask = multi_repre.template_mask
     template_ids, template_scores = tfidf_retrieve(
@@ -78,7 +74,8 @@ def pose_from_features_multi(
         obj_idx=oi,
     )
     return inference.solve_batch(
-        valid, template_ids, template_scores, cors, cameras, config, draws, generator
+        feature_maps, valid, template_ids, template_scores, cors, cameras, multi_repre, config,
+        draws, generator, obj_idx=oi,
     )
 
 

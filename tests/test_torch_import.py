@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX import anywhere in its package, and
-chip_smoke.py refuses to run without a GPU."""
+"""The PyTorch port stands alone: no JAX import anywhere in its package,
+PIL and tabulate imported only where an image is read or a table written
+(the card machine has neither), and chip_smoke.py refuses to run without a
+GPU."""
 
 import json
 import os
@@ -12,6 +14,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundpose_torch")
+BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate")
 
 
 def _sources():
@@ -30,7 +33,7 @@ def test_no_jax_import_statements():
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'foundpose_tpu'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         "import foundpose_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(foundpose_torch.__path__, 'foundpose_torch.')]\n"
@@ -42,20 +45,24 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 29
+    assert int(proc.stdout.strip()) >= 41
 
 
 @pytest.mark.parametrize("module", [
     "foundpose_torch.cameras", "foundpose_torch.engine", "foundpose_torch.ops.warp",
     "foundpose_torch.ops.attention", "foundpose_torch.pipeline.multi_object",
     "foundpose_torch.benchmarks.micro_int8",
+    "foundpose_torch.pose.featuremetric", "foundpose_torch.ops.sampling",
+    "foundpose_torch.ops.morphology", "foundpose_torch.eval.errors",
+    "foundpose_torch.eval.evaluator", "foundpose_torch.eval.bop_ar", "foundpose_torch.data.ply",
+    "foundpose_torch.data.bop", "foundpose_torch.data.detections",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
-    """Each module of the serving slice imports on its own with jax, flax
-    and foundpose_tpu blocked."""
+    """Each module of the serving, refinement and evaluation slices imports
+    on its own with jax, flax, foundpose_tpu, PIL and tabulate blocked."""
     code = (
         "import sys, importlib\n"
-        "for name in ('jax', 'flax', 'foundpose_tpu'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         f"importlib.import_module({module!r})\n"
     )

@@ -47,8 +47,12 @@ def test_sample_grid_features_reshape_path(rng):
     ref = j_sampling.sample_grid_features(jnp.asarray(fmap[1]), pts, (420, 420), 14.0)
     out = t_sampling.sample_grid_features(T(fmap), T(pts), (420, 420), 14.0)
     np.testing.assert_array_equal(out[1].numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        t_sampling.sample_grid_features(T(fmap), T(pts), (420, 420), 10.0)
+    # Off the texel grid (10-px cells on a 30x30 map) the points are
+    # sampled bilinearly, per crop, as in the JAX package.
+    pts10 = j_sampling.grid_points((420, 420), 10.0)
+    out10 = t_sampling.sample_grid_features(T(fmap), T(pts10), (420, 420), 10.0)
+    ref10 = j_sampling.sample_grid_features(jnp.asarray(fmap[1]), pts10, (420, 420), 10.0)
+    np.testing.assert_array_equal(out10[1].numpy(), np.asarray(ref10))
 
 
 @pytest.mark.parametrize("whiten", [False, True])
