@@ -50,6 +50,20 @@ Phases (each prints one line and raises on failure):
      (descriptors splatted bilinearly around their true projections): card
      against CPU (template ids, success, R and t), refined against coarse
      error on the card, both scored by the port's BOP19 AR (MSSD, MSPD).
+  9  the offline CLI at configs/infer/lmo.json (options through
+     utils/config.load_opts): a synthetic LM-O-like split in a temporary
+     directory (12 PNGs of 640x480 with LM-O's camera, objects 1 and 5 with
+     LM-O's diameters, 8 detections each per image: 96 crops per object),
+     an LM-O-scale representation per object whose first 96 templates are
+     that object's crops (written by repre.save_repre); pipeline.infer.infer
+     over both objects and infer_multi_object over the same split (crops/s
+     by host clock, the runner's per-instance prep and pipeline times, the
+     finalize walls, proof that kernels 1-3 launched), the output files,
+     prepare_bop_submission and eval_ar (AR finite; with random weights its
+     value means nothing), no host sync inside one dispatch, the card
+     against the CPU on image 0's first 4 detections with the same draws
+     (on a 5-template world of their own crops whose retrieval scores
+     stand apart), and torch.profiler over one object's infer().
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -107,6 +121,16 @@ REFINE_WORLD_R_ATOL, REFINE_WORLD_T_ATOL = 1e-4, 1e-5
 # then times TIMED_REQUESTS requests.
 WARM_WINDOW, WARM_SETTLE, WARM_MAX_WINDOWS = 5, 0.05, 12
 TIMED_REQUESTS = 30
+
+# Phase 9's split: LM-O's objects 1 (ape) and 5 (can) with their diameters
+# in mm (BOP LM-O models_info.json), CLI_DETS detections of each in each of
+# CLI_IMAGES images.
+CLI_LIDS = (1, 5)
+LMO_DIAMETERS = {1: 102.09865663, 5: 201.40358597}
+CLI_IMAGES, CLI_DETS = 12, 8
+# The shares of the other crops' cells in each template of the card-vs-CPU
+# world (crop_world_repre's `mix`).
+CMP_MIX = (0.9, 0.5, 0.1)
 
 KERNEL_SOURCES = {
     "vit_block": ("foundpose_torch/csrc/vit_block.cu", "foundpose_tpu/ops/vit_block.py:126"),
@@ -585,9 +609,10 @@ def phase_main_path(torch, model, repre, config, device, phase=3, label="lmo.jso
     return res
 
 
-def profile_call(torch, fn, phase, table_name):
-    """torch.profiler over one steady request `fn()`: device busy share and
-    the kernels that take the device time (the full table goes to OUT_DIR)."""
+def profile_call(torch, fn, phase, table_name, what="one request"):
+    """torch.profiler over one steady call `fn()` (`what` names it): device
+    busy share and the kernels that take the device time (the full table
+    goes to OUT_DIR)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,7 +637,7 @@ def profile_call(torch, fn, phase, table_name):
     res = dict(wall_s=wall, device_busy_s=busy_s, device_busy_share=busy_s / wall,
                device_ops=sum(x[2] for x in dev_us), host_launch_calls=launch_calls,
                top=dev_us[:12])
-    log(phase, f"one request under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
+    log(phase, f"{what} under torch.profiler: wall {wall * 1e3:.1f} ms, device busy "
            f"{busy_s * 1e3:.1f} ms ({100 * busy_s / wall:.1f}%), {res['device_ops']} "
            f"device ops, {launch_calls} host launch calls; top: " + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms x{c}"
                                            for k, t, c in dev_us[:6]))
@@ -1054,6 +1079,363 @@ def phase_serving(torch, params, device):
     return res
 
 
+def rle_counts(mask):
+    """COCO uncompressed RLE counts of a bool mask (column-major runs,
+    starting with zeros)."""
+    flat = mask.T.ravel().astype(np.int8)
+    bounds = np.concatenate([[0], np.flatnonzero(np.diff(flat)) + 1, [flat.size]])
+    counts = np.diff(bounds).tolist()
+    return [0] + counts if flat[0] else counts
+
+
+def write_split(torch, root, seed=0):
+    """A synthetic LM-O-like BOP split under `root`: one test scene of
+    CLI_IMAGES 640x480 PNGs (LM-O's camera), objects CLI_LIDS with an
+    octahedron PLY of LM-O's diameter each, and per object per image
+    CLI_DETS GT instances and CNOS detections (box, rectangular mask,
+    score). Returns the detections file's path."""
+    from PIL import Image
+
+    from foundpose_torch.data.ply import Mesh, save_ply
+    from foundpose_torch.geometry import rodrigues
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "bop", "lmo", "test", "000001")
+    models = os.path.join(root, "bop", "lmo", "models")
+    os.makedirs(os.path.join(scene, "rgb"))
+    os.makedirs(models)
+    cams, gts, infos, dets = {}, {}, {}, []
+    for im_id in range(CLI_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
+            os.path.join(scene, "rgb", f"{im_id:06d}.png"))
+        cams[str(im_id)] = {"cam_K": LMO_K.flatten().tolist(), "depth_scale": 1.0}
+        gts[str(im_id)], infos[str(im_id)] = [], []
+        for lid in CLI_LIDS:
+            for _ in range(CLI_DETS):
+                w = float(rng.uniform(60, 200))
+                h = float(np.clip(w * rng.uniform(0.7, 1.4), 40, 300))
+                x, y = float(rng.uniform(0, 640 - w)), float(rng.uniform(0, 480 - h))
+                mask = np.zeros((480, 640), bool)
+                mask[int(y + 0.1 * h) : int(y + 0.9 * h), int(x + 0.1 * w) : int(x + 0.9 * w)] = True
+                dets.append({"scene_id": 1, "image_id": im_id, "category_id": lid,
+                             "score": float(rng.uniform(0.3, 1.0)), "bbox": [x, y, w, h],
+                             "time": 0.05, "segmentation": {"counts": rle_counts(mask),
+                                                            "size": [480, 640]}})
+                r = rodrigues(torch.as_tensor(rng.uniform(-1.0, 1.0, 3), dtype=torch.float32))
+                gts[str(im_id)].append({"obj_id": lid, "cam_R_m2c": r.flatten().tolist(),
+                                        "cam_t_m2c": rng.uniform([-100, -100, 600],
+                                                                 [100, 100, 1000]).tolist()})
+                infos[str(im_id)].append({"bbox_obj": [x, y, w, h], "bbox_visib": [x, y, w, h],
+                                          "visib_fract": 1.0})
+    for name, data in (("scene_camera.json", cams), ("scene_gt.json", gts),
+                       ("scene_gt_info.json", infos)):
+        with open(os.path.join(scene, name), "w") as f:
+            json.dump(data, f)
+    octa = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+                    np.float32)
+    faces = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4], [2, 0, 5], [1, 2, 5],
+                      [3, 1, 5], [0, 3, 5]], np.int32)
+    for lid in CLI_LIDS:
+        save_ply(os.path.join(models, f"obj_{lid:06d}.ply"),
+                 Mesh(vertices=octa * (LMO_DIAMETERS[lid] / 2), faces=faces))
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump({str(lid): {"diameter": LMO_DIAMETERS[lid]} for lid in CLI_LIDS}, f)
+    det_path = os.path.join(root, "detections.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    return det_path
+
+
+def object_crops(opts, lid, image_keys):
+    """The pending crops of object `lid`'s detections in `image_keys`,
+    through the CLI's own host path (decode, detection selection, crop
+    cameras, warp on opts.device)."""
+    from foundpose_torch.data import bop, detections as det_mod
+    from foundpose_torch.eval.evaluator import EvaluatorPose
+    from foundpose_torch.ops.warp import make_single_image_warp
+    from foundpose_torch.pipeline import infer
+
+    all_dets = det_mod.load_detections(opts.detections_path)
+    warp = make_single_image_warp(opts.crop_size)
+    out = []
+    for scene_id, im_id in image_keys:
+        sample = bop.prepare_sample(opts.bop_root, opts.object_dataset, scene_id, im_id,
+                                    crop_size=opts.dataset_crop_size)
+        dets = infer._detections_for(opts, sample, lid, all_dets[(scene_id, im_id, lid)],
+                                     EvaluatorPose([lid]))
+        out += infer.prepare_instance_crops(sample, dets, opts, warp)
+    return out
+
+
+def crop_world_repre(torch, model, config, pendings, seed, device, num_templates=798, mix=(),
+                     knn_k=None):
+    """`synthetic.realistic_repre(seed, num_templates=...)` (LM-O scale by
+    default) whose first templates are the given crops themselves: each
+    crop's PCA-projected ViT features at the grid cells on its mask,
+    lifted to 3D in its crop camera at depths 0.4-0.6, with the visual
+    words drawn from those features (all of them where the codebook has
+    room) and the tf-idf descriptors recomputed.
+    Those crops then retrieve their own template first and their poses can
+    succeed. With mix = (f1, f2, ...), template k also holds the first
+    share f_i of crop (k + i) mod n's cells, which spaces every crop's
+    retrieval scores apart: own template, then crops k - 1, k - 2, ...;
+    knn_k, when given, replaces the tf-idf word votes per feature (1: each
+    feature votes for its own word only)."""
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.ops import sampling, tfidf
+    from foundpose_torch.ops.pca import pca_transform
+    from foundpose_torch.pipeline import infer, inference
+    from foundpose_torch.synthetic import realistic_repre
+
+    base = realistic_repre(seed, device, num_templates=num_templates)
+    g = torch.Generator(device=device).manual_seed(seed + 100)
+    t, fmax, d = base.bank_feats.shape
+    pts = sampling.grid_points(config.crop_size, config.grid_cell_size, device=device)
+    cells = []  # (features [m, d], vertices [m, 3]) of each crop's cells on its mask
+    for s in range(0, len(pendings), 16):
+        chunk = pendings[s : s + 16]
+        crops, masks, cams = infer.stack_batch(chunk, device)
+        fm = dinov2.extract_facet(model, inference.preprocess_crops(crops, config))[
+            "feature_maps"].float()
+        feats = pca_transform(base.raw_projector,
+                              sampling.sample_grid_features(fm, pts, config.crop_size,
+                                                            config.grid_cell_size))
+        valid = sampling.points_in_mask(pts, masks.float())
+        rays = torch.cat([(pts - cams.c[:, None]) / cams.f[:, None],
+                          torch.ones_like(pts[..., :1]).expand(len(chunk), -1, 1)], dim=-1)
+        depth = 0.4 + 0.2 * torch.rand(len(chunk), pts.shape[0], 1, generator=g, device=device)
+        cells += [(feats[i, valid[i]], (rays[i] * depth[i])[valid[i]]) for i in range(len(chunk))]
+    bank_feats, bank_verts = base.bank_feats.clone(), base.bank_vertices.clone()
+    bank_mask = base.bank_mask.clone()
+    n = len(cells)
+    for k in range(n):
+        parts = [cells[k]] + [
+            tuple(a[: int(frac * len(a))] for a in cells[(k + i + 1) % n])
+            for i, frac in enumerate(mix)]
+        f = torch.cat([p[0] for p in parts])[:fmax]
+        v = torch.cat([p[1] for p in parts])[:fmax]
+        bank_mask[k] = False
+        bank_mask[k, : len(f)] = True
+        bank_feats[k, : len(f)] = f
+        bank_verts[k, : len(f)] = v
+    flat_mask = bank_mask.reshape(-1)
+    crop_feats = torch.cat([c[0] for c in cells])
+    pick = torch.randperm(len(crop_feats), generator=g, device=device)[: len(base.word_centroids)]
+    words = base.word_centroids.clone()
+    words[: len(pick)] = crop_feats[pick] + 0.01 * torch.randn(len(pick), d, generator=g,
+                                                               device=device)
+    flat_ids = torch.arange(t, device=device).repeat_interleave(fmax)
+    cfg = base.tfidf_config if knn_k is None else base.tfidf_config._replace(knn_k=knn_k)
+    descs, idfs = tfidf.calc_template_tfidf_descriptors(
+        bank_feats.reshape(-1, d), flat_ids, words, t, cfg, feature_mask=flat_mask)
+    return dataclasses.replace(
+        base, tfidf_config=cfg, vertices=bank_verts.reshape(-1, 3), feat_vectors=bank_feats.reshape(-1, d),
+        feat_mask=flat_mask, word_centroids=words, word_idfs=idfs, template_descs=descs,
+        bank_feats=bank_feats, bank_vertices=bank_verts, bank_mask=bank_mask)
+
+
+class CapturedRuns:
+    """Wraps pipeline.infer.finalize_object_results while active: records
+    each object's (instance, result) pairs and the wall of each finalize."""
+
+    def __init__(self):
+        from foundpose_torch.pipeline import infer
+
+        self.mod, self.results, self.finalize_s = infer, {}, {}
+
+    def __enter__(self):
+        orig = self.orig = self.mod.finalize_object_results
+
+        def wrapped(opts, lid, results, *args, **kwargs):
+            t0 = time.perf_counter()
+            orig(opts, lid, results, *args, **kwargs)
+            self.results[lid], self.finalize_s[lid] = results, time.perf_counter() - t0
+
+        self.mod.finalize_object_results = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.finalize_object_results = self.orig
+
+
+def host_split(captured):
+    """Per-instance prep and pipeline seconds the runner recorded (mean
+    over all instances), the finalize walls and the success count."""
+    pairs = [pr for res in captured.results.values() for pr in res]
+    return dict(
+        instances=len(pairs), successes=sum(r["success"] for _, r in pairs),
+        prep_s_per_instance=float(np.mean([p.times["prep"] for p, _ in pairs])),
+        pipeline_s_per_instance=float(np.mean([p.times["pipeline"] for p, _ in pairs])),
+        finalize_s={str(k): v for k, v in captured.finalize_s.items()},
+    )
+
+
+def phase_cli(torch, params, vit_cfg, device, lmo_median_s):
+    """The offline CLI at configs/infer/lmo.json on a synthetic LM-O-like
+    split (see the module docstring)."""
+    import tempfile
+    import warnings
+
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_torch.pipeline import eval_ar, infer, inference
+    from foundpose_torch.pipeline import prepare_bop_submission as sub
+    from foundpose_torch.repre import load_repre, save_repre
+    from foundpose_torch.utils import config as config_util
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="foundpose_split_") as root:
+        t0 = time.perf_counter()
+        det_path = write_split(torch, root)
+        weights = os.path.join(root, "vits14_reg.pth")
+        torch.save(state_dict_from_jax_params(params, vit_cfg), weights)
+        out = os.path.join(root, "out")
+        opts = config_util.load_opts(infer.InferOpts, [
+            "--opts-path", LMO_CONFIG, "--set", f"bop_root={root}/bop",
+            "--set", f"repre_dir={root}/repre", "--set", f"detections_path={det_path}",
+            "--set", f"output_dir={out}", "--set", f"weights_path={weights}",
+            "--set", f"object_lids={list(CLI_LIDS)}", "--set", "dataset_crop_size=[640, 480]",
+        ])
+        check(opts.device == "cuda" and opts.batch_size == 16, f"options {opts}")
+        model, config = infer.load_model(opts, device)
+        with open(LMO_CONFIG) as f:
+            check(config == inference.inference_config_from_opts(json.load(f)),
+                  "the CLI resolved another configuration than lmo.json")
+        keys = [(1, i) for i in range(CLI_IMAGES)]
+        for seed, lid in enumerate(CLI_LIDS):
+            crops = object_crops(opts, lid, keys)
+            save_repre(crop_world_repre(torch, model, config, crops, seed, device),
+                       os.path.join(root, "repre", "lmo", "v1", str(lid)))
+        del crops
+        torch.cuda.synchronize()
+        res["split_setup_s"] = time.perf_counter() - t0
+        n_crops = CLI_IMAGES * CLI_DETS * len(CLI_LIDS)
+
+        # infer over both objects, then infer_multi_object over the same split.
+        for name, fn, sub_out in (("infer", infer.infer, out),
+                                  ("infer_multi_object", infer.infer_multi_object, out + "_mo")):
+            run_opts = dataclasses.replace(opts, output_dir=sub_out)
+            reset_counts()
+            with CapturedRuns() as cap:
+                t0 = time.perf_counter()
+                counts = fn(run_opts)
+                wall = time.perf_counter() - t0
+            launches = read_counts()
+            check(counts == {lid: CLI_IMAGES * CLI_DETS for lid in CLI_LIDS}, f"{name} counts {counts}")
+            check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+                  f"{name}: kernels not launched: {launches}")
+            res[name] = dict(wall_s=wall, crops=n_crops, crops_per_s=n_crops / wall,
+                             launches=launches, **host_split(cap))
+            r = res[name]
+            log(9, f"{name} over {len(CLI_LIDS)} objects, {n_crops} crops (batch 16): wall "
+                   f"{wall:.2f} s -> {r['crops_per_s']:.1f} crops/s (host clock, whole call: model "
+                   f"and repre loads, decode, warp, step, finalize); per instance prep "
+                   f"{r['prep_s_per_instance'] * 1e3:.2f} ms, pipeline "
+                   f"{r['pipeline_s_per_instance'] * 1e3:.2f} ms; finalize s "
+                   + ", ".join(f"{k}: {v:.2f}" for k, v in r["finalize_s"].items())
+                   + f"; {r['successes']} of {r['instances']} succeeded; launches {launches}; "
+                   f"phase 3 for comparison: 16 / median {16 / lmo_median_s:.1f} crops/s")
+
+        # Output files, the submission and its AR.
+        records = 0
+        for lid in CLI_LIDS:
+            d = os.path.join(out, "lmo", "v1", str(lid))
+            for f in ("estimated-poses.json", "metrics.tsv", "metrics-table.tsv"):
+                check(os.path.exists(os.path.join(d, f)), f"missing {d}/{f}")
+            with open(os.path.join(d, "estimated-poses.json")) as f:
+                records += len(json.load(f))
+        check(records == res["infer"]["successes"] > 0, f"{records} records for "
+              f"{res['infer']['successes']} successes")
+        csv = sub.prepare(sub.PrepareBopSubmissionOpts(object_dataset="lmo", results_dir=out))
+        with open(csv) as f:
+            rows = f.read().strip().split("\n")[1:]
+        ar = eval_ar.evaluate(eval_ar.EvalArOpts(object_dataset="lmo", submission_path=csv,
+                                                 bop_root=os.path.join(root, "bop")))
+        res.update(csv_rows=len(rows), estimate_records=records, ar=ar)
+        log(9, f"submission: {len(rows)} CSV rows for {records} successful estimates; eval_ar "
+               f"(random weights, synthetic GT: the value means nothing) "
+               + ", ".join(f"{k} {v:.4f}" for k, v in ar.items()))
+        check(len(rows) == records, "CSV rows differ from the successful estimates")
+        check(all(np.isfinite(v) for v in ar.values()), f"AR not finite: {ar}")
+
+        # No host sync inside a dispatch.
+        pend = object_crops(opts, CLI_LIDS[0], keys[:2])[:16]
+        repre = load_repre(os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])),
+                                 device=device).cast_banks(config.compute_dtype)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fetch = infer.HostFetch(infer.dispatch_batch(model, repre, config, pend, 0, device))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+        check(fetch.wait().R_m2w.shape == (16, 3, 3), "dispatch output shape")
+        res["dispatch_host_syncs"] = len(syncs)
+        log(9, f"one dispatch (stack, pinned copies, pose_from_crops, host copies issued) under "
+               f"the CUDA sync debug mode: {len(syncs)} host syncs (tol 0)")
+        check(not syncs, f"a dispatch synchronised with the host: {syncs[:3]}")
+        del repre, fetch
+
+        # Card against CPU: image 0's first 4 detections of the first object,
+        # on a 5-template world of their own crops, mixed (CMP_MIX) and with
+        # one word vote per feature, so that each crop's 5 retrieval scores
+        # stand well apart: near-tied
+        # templates could swap places under the bf16 ViT's rounding on one
+        # side and not the other, which would say nothing about the port.
+        with open(det_path) as f:
+            first = [d for d in json.load(f) if d["image_id"] == 0
+                     and d["category_id"] == CLI_LIDS[0]][:4]
+        cmp_path = os.path.join(root, "detections_cmp.json")
+        with open(cmp_path, "w") as f:
+            json.dump(first, f)
+        cmp_opts = dataclasses.replace(opts, detections_path=cmp_path, object_lids=[CLI_LIDS[0]],
+                                       batch_size=4, repre_dir=os.path.join(root, "repre_cmp"))
+        save_repre(crop_world_repre(torch, model, config, object_crops(cmp_opts, CLI_LIDS[0], keys[:1]),
+                                    7, device, num_templates=5, mix=CMP_MIX, knn_k=1),
+                   os.path.join(root, "repre_cmp", "lmo", "v1", str(CLI_LIDS[0])))
+        h, k = config.pnp_ransac_iter, config.top_k_buddies
+        draws = lambda s: np.random.default_rng(1000 + s).integers(
+            0, k, (4, config.top_n_templates, h, 6))
+        by_dev = {}
+        for dev in ("cuda", "cpu"):
+            dev_opts = dataclasses.replace(cmp_opts, output_dir=f"{out}_{dev}", device=dev)
+            with CapturedRuns() as cap:
+                t0 = time.perf_counter()
+                infer.infer(dev_opts, draws_fn=draws)
+                by_dev[dev] = ([r for _, r in cap.results[CLI_LIDS[0]]], time.perf_counter() - t0)
+        (gpu, gpu_s), (cpu, cpu_s) = by_dev["cuda"], by_dev["cpu"]
+        same_ids = all(np.array_equal(a["template_ids"], b["template_ids"]) for a, b in zip(gpu, cpu))
+        same_best = [a["best_template"] for a in gpu] == [b["best_template"] for b in cpu]
+        same_success = [a["success"] for a in gpu] == [b["success"] for b in cpu]
+        both = [(a, b) for a, b in zip(gpu, cpu) if a["success"] and b["success"]]
+        d_r = max([float(np.abs(a["R_m2c"] - b["R_m2c"]).max()) for a, b in both], default=0.0)
+        d_t = max([float(np.abs(a["t_m2c"] - b["t_m2c"]).max()) for a, b in both], default=0.0)
+        scores = np.array([a["template_scores"] for a in gpu])
+        res["card_vs_cpu"] = dict(
+            crops=len(gpu), min_score_gap=float(np.diff(-scores, axis=1).min()), same_template_ids=same_ids, same_best_template=same_best,
+            same_success=same_success, both_succeeded=len(both), max_abs_R=d_r, max_abs_t=d_t,
+            card_s=gpu_s, cpu_s=cpu_s,
+            template_ids=[a["template_ids"].tolist() for a in gpu],
+            cpu_template_ids=[b["template_ids"].tolist() for b in cpu])
+        log(9, f"card vs CPU, infer() on image 0's {len(gpu)} detections (batch 4, same draws; "
+               f"{gpu_s:.1f} s / {cpu_s:.1f} s): template ids equal {same_ids}, best template "
+               f"equal {same_best}, success equal {same_success}, {len(both)} succeeded on both, "
+               f"|R| {d_r:.2e} (tol {REFINE_WORLD_R_ATOL}), |t| {d_t:.2e} m (tol "
+               f"{REFINE_WORLD_T_ATOL})")
+        check(len(gpu) == len(cpu) == 4, "card vs CPU instance count")
+        check(same_ids and same_best and same_success,
+              "card and CPU disagree on template ids, best template or success")
+        check(both and d_r <= REFINE_WORLD_R_ATOL and d_t <= REFINE_WORLD_T_ATOL,
+              "card and CPU poses differ (or none succeeded on both)")
+
+        # Device busy share over one object's infer() call.
+        one = dataclasses.replace(opts, object_lids=[CLI_LIDS[0]], output_dir=out + "_prof")
+        res["profile"] = profile_call(torch, lambda: infer.infer(one), 9, "profile_cli.txt",
+                                      what=f"infer() of one object ({CLI_IMAGES * CLI_DETS} crops)")
+    return res
+
+
 def phase_probe(torch):
     """The probe's own entry point, counts from zero."""
     from foundpose_torch.benchmarks import micro_int8
@@ -1120,6 +1502,8 @@ def main():
         del model, repre
         report["serving"] = phase_serving(torch, params, device)
         report["probe"] = phase_probe(torch)
+        report["cli"] = phase_cli(torch, params, vit_cfg, device,
+                                  report["main_path"]["median_latency_s"])
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

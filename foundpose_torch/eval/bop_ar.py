@@ -38,20 +38,11 @@ tests/test_torch_eval.py.
 from __future__ import annotations
 
 import dataclasses
-import enum
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-
-class RenderType(enum.Enum):
-    """Keys of a renderer's output mapping (the values of
-    foundpose_tpu/renderer/base.RenderType); VSD reads DEPTH."""
-
-    COLOR = "color"
-    DEPTH = "depth"
-    MASK = "mask"
-    NORMAL = "normal"
+from foundpose_torch.renderer.base import RenderType
 
 
 @dataclasses.dataclass

@@ -70,7 +70,7 @@ def as_4x4_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([r, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
+    bottom = torch.eye(4, dtype=r.dtype, device=r.device)[3]  # made on the device: no copy
     bottom = bottom.expand(*batch, 1, 4)
     return torch.cat([top, bottom], dim=-2)
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from foundpose_torch.ops.attention import fused_attention_bhtd
+from foundpose_torch.structs import to_device
 from foundpose_torch.ops.vit_block import fused_vit_block, gelu, layer_norm
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -246,8 +247,8 @@ def interpolate_pos_embed(
     d = pos_embed.shape[-1]
     grid = pos_embed[:, 1:].reshape(1, pos_grid, pos_grid, d).float()
     dev = pos_embed.device
-    mh = torch.as_tensor(_torch_bicubic_matrix(pos_grid, gh, (gh + 0.1) / pos_grid), device=dev)
-    mw = torch.as_tensor(_torch_bicubic_matrix(pos_grid, gw, (gw + 0.1) / pos_grid), device=dev)
+    mh = to_device(_torch_bicubic_matrix(pos_grid, gh, (gh + 0.1) / pos_grid), dev)
+    mw = to_device(_torch_bicubic_matrix(pos_grid, gw, (gw + 0.1) / pos_grid), dev)
     resized = torch.einsum("oi,bijd->bojd", mh, grid)
     resized = torch.einsum("pj,bojd->bopd", mw, resized)
     return torch.cat([pos_embed[:, :1].float(), resized.reshape(1, gh * gw, d)], dim=1)
@@ -369,6 +370,6 @@ def extract_facet(model: DinoV2, images_nhwc: torch.Tensor) -> Dict[str, torch.T
 
 def normalize_images(images_nhwc: torch.Tensor) -> torch.Tensor:
     """ImageNet-stat normalization of [..., 3] images."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images_nhwc.dtype, device=images_nhwc.device)
-    std = torch.tensor(IMAGENET_STD, dtype=images_nhwc.dtype, device=images_nhwc.device)
+    mean = to_device(torch.tensor(IMAGENET_MEAN, dtype=images_nhwc.dtype), images_nhwc.device)
+    std = to_device(torch.tensor(IMAGENET_STD, dtype=images_nhwc.dtype), images_nhwc.device)
     return (images_nhwc - mean) / std

@@ -310,7 +310,7 @@ def ransac_pnp(
     finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
     eye = torch.eye(3, device=rs.device)
     rs = torch.where(finite[..., None, None], rs, eye)
-    ts = torch.where(finite[..., None], ts, torch.tensor([0.0, 0.0, 1.0], device=ts.device))
+    ts = torch.where(finite[..., None], ts, eye[2])
 
     hyp_counts = score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
     best = torch.argmax(hyp_counts, dim=-1)  # first maximum

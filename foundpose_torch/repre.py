@@ -2,8 +2,8 @@
 foundpose_tpu/repre.py).
 
 The serialized form is the JAX package's own: `repre.npz` plus
-`repre_meta.json` as `foundpose_tpu.repre.save_repre` writes them, read here
-unchanged.
+`repre_meta.json`, as `foundpose_tpu.repre.save_repre` and `save_repre`
+here write them; either package reads the other's files.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ class ObjectRepre:
     template_mask: Optional[torch.Tensor] = None  # [T] bool
     tfidf_config: TfidfConfig = TfidfConfig()
     extractor_name: str = ""
+    # Template images [T, 3, H, W] on the host, for visualisation only.
+    templates: Optional[np.ndarray] = None
 
     @property
     def num_templates(self) -> int:
@@ -165,6 +167,7 @@ def make_repre(
     tfidf_config: TfidfConfig = TfidfConfig(),
     extractor_name: str = "",
     feat_mask: Optional[np.ndarray] = None,
+    templates: Optional[np.ndarray] = None,
     device="cuda",
 ) -> ObjectRepre:
     """ObjectRepre on `device` from flat host arrays (banks built here)."""
@@ -193,7 +196,45 @@ def make_repre(
         raw_projector=raw_projector.to(device) if raw_projector is not None else None,
         tfidf_config=tfidf_config,
         extractor_name=extractor_name,
+        templates=templates,
     )
+
+
+def save_repre(repre: ObjectRepre, repre_dir: str) -> None:
+    """Writes `<dir>/repre.npz` + `<dir>/repre_meta.json` in the JAX
+    package's layout (uncompressed, as there: the f32 banks barely
+    compress). Tensors on the card are copied to the host here."""
+    os.makedirs(repre_dir, exist_ok=True)
+    cams = repre.template_cameras
+    arrays = {
+        "vertices": repre.vertices,
+        "feat_vectors": repre.feat_vectors,
+        "feat_to_template_ids": repre.feat_to_template_ids,
+        "feat_mask": repre.feat_mask,
+        "word_centroids": repre.word_centroids,
+        "word_idfs": repre.word_idfs,
+        "template_descs": repre.template_descs,
+        "cam_f": cams.f,
+        "cam_c": cams.c,
+        "cam_T": cams.T_world_from_eye,
+    }
+    proj = repre.raw_projector
+    if proj is not None:
+        arrays.update(pca_mean=proj.mean, pca_components=proj.components,
+                      pca_variance=proj.explained_variance)
+    arrays = {k: v.detach().cpu().numpy() for k, v in arrays.items()}
+    if repre.templates is not None:
+        arrays["templates"] = np.asarray(repre.templates)
+    np.savez(os.path.join(repre_dir, "repre.npz"), **arrays)
+    meta = {
+        "tfidf_config": repre.tfidf_config._asdict(),
+        "extractor_name": repre.extractor_name,
+        "cam_width": cams.width,
+        "cam_height": cams.height,
+        "pca_whiten": bool(proj.whiten) if proj is not None else None,
+    }
+    with open(os.path.join(repre_dir, "repre_meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
 
 
 def load_repre(repre_dir: str, device="cuda") -> ObjectRepre:
@@ -230,5 +271,6 @@ def load_repre(repre_dir: str, device="cuda") -> ObjectRepre:
         tfidf_config=TfidfConfig(**meta["tfidf_config"]),
         extractor_name=meta.get("extractor_name", ""),
         feat_mask=arrays["feat_mask"],
+        templates=arrays.get("templates"),
         device=device,
     )

@@ -10,6 +10,18 @@ import torch
 from foundpose_torch import geometry
 
 
+def to_device(a, device) -> torch.Tensor:
+    """A host array, tensor or nested list on `device`. On the card the copy
+    goes through pinned memory with non_blocking=True, so it neither waits
+    for the queued device work nor blocks the host (a copy from pageable
+    memory synchronizes)."""
+    t = torch.as_tensor(a)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 @dataclasses.dataclass
 class PinholeCamera:
     """Pinhole camera with (fx, fy) focal, principal point and extrinsics.
@@ -114,6 +126,9 @@ class PinholeCamera:
         t = self.T_world_from_eye
         d = v - t[..., :3, 3]
         return torch.sum(t[..., :3, :3] * d[..., :, None], dim=-2)
+
+    def world_to_window(self, v: torch.Tensor) -> torch.Tensor:
+        return self.eye_to_window(self.world_to_eye(v))
 
     def eye_to_world(self, v: torch.Tensor) -> torch.Tensor:
         t = self.T_world_from_eye

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no JAX import anywhere in its package,
-PIL and tabulate imported only where an image is read or a table written
-(the card machine has neither), and chip_smoke.py refuses to run without a
-GPU."""
+"""The PyTorch port stands alone: no JAX import anywhere in its package;
+PIL, tabulate and cv2 imported only where an image is read or drawn or a
+table written, so every module imports without them; and chip_smoke.py
+refuses to run without a GPU."""
 
 import json
 import os
@@ -14,7 +14,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundpose_torch")
-BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate")
+BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate", "cv2")
 
 
 def _sources():
@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 41
+    assert int(proc.stdout.strip()) >= 57
 
 
 @pytest.mark.parametrize("module", [
@@ -56,10 +56,17 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.ops.morphology", "foundpose_torch.eval.errors",
     "foundpose_torch.eval.evaluator", "foundpose_torch.eval.bop_ar", "foundpose_torch.data.ply",
     "foundpose_torch.data.bop", "foundpose_torch.data.detections",
+    "foundpose_torch.utils.config", "foundpose_torch.utils.logging_util",
+    "foundpose_torch.parallel.host_shard", "foundpose_torch.pipeline.infer",
+    "foundpose_torch.pipeline.prepare_bop_submission", "foundpose_torch.pipeline.eval_ar",
+    "foundpose_torch.pipeline.sweep", "foundpose_torch.renderer.base",
+    "foundpose_torch.renderer.rasterizer", "foundpose_torch.vis.base",
+    "foundpose_torch.vis.inference_vis", "foundpose_torch.vis.html_report",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
-    """Each module of the serving, refinement and evaluation slices imports
-    on its own with jax, flax, foundpose_tpu, PIL and tabulate blocked."""
+    """Each module of the serving, refinement, evaluation and CLI slices
+    imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    blocked."""
     code = (
         "import sys, importlib\n"
         f"for name in {BLOCKED!r}:\n"
