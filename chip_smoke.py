@@ -65,6 +65,27 @@ Phases (each prints one line and raises on failure):
      (on a 5-template world of their own crops whose retrieval scores
      stand apart), and torch.profiler over one object's infer().
 
+  10 the offline builder (leg a): one LM-O-sized object, a textured
+     icosphere of 5,120 faces with LM-O object 1's diameter, through
+     pipeline.gen_templates at configs/gen_templates/lmo.json (798
+     templates of 420 px, SSAA 4; templates/s) and pipeline.gen_repre at
+     configs/gen_repre/lmo.json (ViT-S/14-reg layer 9 unfused f32 on the
+     attention kernel, PCA 384 -> 256, 2048 words): Timer's stage times
+     with k-means split into init and Lloyd, templates/s, peak memory,
+     proof that attention launched 500 times (50 chunks x 10 layers) and
+     the block and buddies kernels never, the representation's shapes and
+     finiteness, no host sync in one registration chunk (CUDA sync debug
+     mode), torch.profiler over one gen_repre call; then infer() at
+     configs/infer/lmo.json on 4 images rendered from the same mesh at
+     template views (LM-O camera), the submission and eval_ar, the median
+     pose errors. Leg (b):
+     the world of tests/test_integration.py (36 templates of 140 px, a
+     2-block ViT with 64-wide heads) built by gen_repre on the card and on
+     the CPU with the same k-means init (features, vertices, ids, validity,
+     PCA reconstruction, tf-idf descriptors against stated tolerances),
+     then infer() on the card with the card-built representation against
+     the GT pose (< 15 deg, < 30 mm).
+
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
 prints no result. Details go to chiprun_out/chip_smoke.json.
@@ -131,6 +152,26 @@ CLI_IMAGES, CLI_DETS = 12, 8
 # The shares of the other crops' cells in each template of the card-vs-CPU
 # world (crop_world_repre's `mix`).
 CMP_MIX = (0.9, 0.5, 0.1)
+
+# Phase 10: the builder's configs; leg (a)'s object is LM-O object 1 as a
+# subdivided icosahedron (20 * 4**BUILD_SUBDIV faces) of its diameter,
+# seen at four template views: views BUILD_VIEWS of the 57-view sphere at
+# in-plane steps BUILD_STEPS (of 14). With random weights a crop between
+# template views may match too few cells to solve (one of four did not on
+# one card); at a template view each solve has a template to match. Leg
+# (b) is the world of tests/test_integration.py with a ViT whose heads
+# are 64 wide (the attention kernel's width) at 2 blocks.
+GT_CONFIG = os.path.join(ROOT, "configs", "gen_templates", "lmo.json")
+GR_CONFIG = os.path.join(ROOT, "configs", "gen_repre", "lmo.json")
+BUILD_LID, BUILD_SUBDIV = 1, 4
+BUILD_VIEWS, BUILD_STEPS = (5, 17, 30, 44), (0, 2, 5, 9)
+SMALL_EXTRACTOR = "dinov2_version=vits14-reg_stride=14_facet=token_layer=1_norm=1"
+SMALL_VIT = {"embed_dim": 128, "depth": 2, "num_heads": 2, "pos_grid": 10}
+# Leg (b), card against CPU: registration features (f32; cuBLAS and the
+# attention kernel against MKL and the twin) by relative L2; vertices in mm;
+# the PCA projectors (cuSOLVER against LAPACK, signs free) by the relative
+# L2 of their reconstructions; the tf-idf descriptors from the same init.
+BUILD_FEAT_REL_L2, BUILD_VERT_ATOL, BUILD_PCA_REL_L2, BUILD_DESC_ATOL = 1e-4, 1e-3, 1e-3, 1e-4
 
 KERNEL_SOURCES = {
     "vit_block": ("foundpose_torch/csrc/vit_block.cu", "foundpose_tpu/ops/vit_block.py:126"),
@@ -1436,6 +1477,459 @@ def phase_cli(torch, params, vit_cfg, device, lmo_median_s):
     return res
 
 
+def icosphere(subdiv, radius, seed):
+    """A subdivided icosahedron of `radius` mm (20 * 4**subdiv faces) with
+    random vertex colours."""
+    from foundpose_torch.data.ply import Mesh
+
+    phi = (1 + 5 ** 0.5) / 2
+    verts = [np.array(p, float) for p in (
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0], [0, -1, phi], [0, 1, phi],
+        [0, -1, -phi], [0, 1, -phi], [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1])]
+    verts = [v / np.linalg.norm(v) for v in verts]
+    faces = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+             [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+             [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(subdiv):
+        mids, finer = {}, []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mids[key] = len(verts) - 1
+            return mids[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            finer += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        faces = finer
+    colors = np.random.default_rng(seed).integers(40, 255, (len(verts), 3)).astype(np.uint8)
+    return Mesh(vertices=np.asarray(verts, np.float32) * radius,
+                faces=np.asarray(faces, np.int32), colors=colors)
+
+
+def write_rendered_split(torch, root, mesh, lid, diameter, poses, K, size):
+    """A BOP split under `root`/bop/lmo whose one test scene holds one
+    rendered image per GT pose (R_m2c, t_m2c in mm) of the object `lid`
+    with camera K and (width, height) `size`, a CNOS detection per image
+    from the rendered mask, and the object's PLY and models_info.json.
+    Returns the detections file's path."""
+    from PIL import Image
+
+    from foundpose_torch.data.ply import save_ply
+    from foundpose_torch.renderer.base import RendererType, RenderType, build
+    from foundpose_torch.structs import PinholeCamera
+
+    scene = os.path.join(root, "bop", "lmo", "test", "000001")
+    models = os.path.join(root, "bop", "lmo", "models")
+    os.makedirs(os.path.join(scene, "rgb"))
+    os.makedirs(models)
+    save_ply(os.path.join(models, f"obj_{lid:06d}.ply"), mesh)
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump({str(lid): {"diameter": diameter}}, f)
+    renderer = build(RendererType.SOFTWARE_RASTERIZER)
+    renderer.add_object_model(lid, mesh)
+    w, h = size
+    cams, gts, infos, dets = {}, {}, {}, []
+    for im_id, (r, t) in enumerate(poses):
+        t_m2c = np.eye(4)
+        t_m2c[:3, :3], t_m2c[:3, 3] = r, t
+        cam = PinholeCamera.from_intrinsic_matrix(
+            K, w, h, T_world_from_eye=torch.as_tensor(np.linalg.inv(t_m2c), dtype=torch.float32))
+        out = renderer.render_object_model(lid, cam)
+        mask = np.asarray(out[RenderType.MASK]) > 0
+        check(mask.sum() > 100, f"image {im_id}: the object is not in view")
+        rgb = (255 * np.clip(np.asarray(out[RenderType.COLOR]), 0, 1)).astype(np.uint8)
+        Image.fromarray(rgb).save(os.path.join(scene, "rgb", f"{im_id:06d}.png"))
+        ys, xs = np.nonzero(mask)
+        box = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+               int(ys.max() - ys.min() + 1)]
+        cams[str(im_id)] = {"cam_K": np.asarray(K).flatten().tolist(), "depth_scale": 0.1}
+        gts[str(im_id)] = [{"obj_id": lid, "cam_R_m2c": np.asarray(r).flatten().tolist(),
+                            "cam_t_m2c": np.asarray(t).tolist()}]
+        infos[str(im_id)] = [{"bbox_obj": box, "bbox_visib": box, "visib_fract": 1.0}]
+        dets.append({"scene_id": 1, "image_id": im_id, "category_id": lid, "score": 0.99,
+                     "bbox": box, "time": 0.1,
+                     "segmentation": {"counts": rle_counts(mask), "size": [h, w]}})
+    for name, data in (("scene_camera.json", cams), ("scene_gt.json", gts),
+                       ("scene_gt_info.json", infos)):
+        with open(os.path.join(scene, name), "w") as f:
+            json.dump(data, f)
+    det_path = os.path.join(root, "detections.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    return det_path
+
+
+def view_poses(n_views, radius, picks, inplane_deg):
+    """GT poses (R_m2c, t_m2c) from the template generator's view sphere:
+    view i of sample_views(n_views, radius), turned `inplane_deg` about the
+    optical axis."""
+    from foundpose_torch import cameras as cam_mod
+
+    views = cam_mod.sample_views(n_views, radius=radius)
+    poses = []
+    for i, ang in zip(picks, inplane_deg):
+        a = np.radians(ang)
+        rz = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0], [0, 0, 1.0]])
+        poses.append((rz @ views[i]["R"], (rz @ views[i]["t"]).flatten()))
+    return poses
+
+
+def pose_errors(out_dir, lid, poses):
+    """(rotation errors in degrees, translation errors in mm) of each
+    estimate in `out_dir`'s estimated-poses.json against its image's GT."""
+    with open(os.path.join(out_dir, "lmo", "v1", str(lid), "estimated-poses.json")) as f:
+        est = json.load(f)
+    r_err, t_err = [], []
+    for e in est:
+        r_gt, t_gt = poses[int(e["img_id"])]
+        r = np.asarray(e["R"], float)
+        r_err.append(float(np.degrees(np.arccos(np.clip((np.trace(r @ r_gt.T) - 1) / 2, -1, 1)))))
+        t_err.append(float(np.linalg.norm(np.asarray(e["t"], float).flatten() - t_gt)))
+    return r_err, t_err
+
+
+class StageLog:
+    """Collects the `Timer` lines ("<stage>: <seconds>s") the builder logs
+    while active, and times k-means' init and Lloyd loop (with a device
+    synchronize after each)."""
+
+    def __init__(self, torch):
+        import logging
+
+        from foundpose_torch.ops import kmeans
+
+        self.torch, self.kmeans, self.stages = torch, kmeans, {}
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger("foundpose_torch")
+
+    def _emit(self, record):
+        msg = record.getMessage()
+        name, _, sec = msg.rpartition(": ")
+        if name and sec.endswith("s"):
+            try:
+                self.stages[name] = self.stages.get(name, 0.0) + float(sec[:-1])
+            except ValueError:
+                pass
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        self.orig = self.kmeans._kmeanspp_init, self.kmeans._lloyd
+        self.kmeans._kmeanspp_init = self._timed("k-means init", self.orig[0])
+        self.kmeans._lloyd = self._timed("k-means Lloyd", self.orig[1])
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.kmeans._kmeanspp_init, self.kmeans._lloyd = self.orig
+        self.logger.removeHandler(self.handler)
+
+
+def builder_lmo(torch, params, vit_cfg, device):
+    """Leg (a): one LM-O-sized object through gen_templates and gen_repre at
+    their shipped configs on the card, then the port's infer() at
+    configs/infer/lmo.json on a split rendered from the same mesh."""
+    import tempfile
+    import warnings
+
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_torch.ops import kmeans
+    from foundpose_torch.pipeline import eval_ar, gen_repre, gen_templates, infer
+    from foundpose_torch.pipeline import prepare_bop_submission as sub
+    from foundpose_torch.repre import load_repre
+    from foundpose_torch.structs import to_device
+    from foundpose_torch.utils import config as config_util
+
+    lid, diameter = BUILD_LID, LMO_DIAMETERS[BUILD_LID]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="foundpose_build_") as root:
+        mesh = icosphere(BUILD_SUBDIV, diameter / 2, seed=lid)
+        radius = 6.0 * diameter  # the template generator's sphere: mid of 4-8 diameters
+        poses = view_poses(57, radius, BUILD_VIEWS, [k * 360.0 / 14 for k in BUILD_STEPS])
+        det_path = write_rendered_split(torch, root, mesh, lid, diameter, poses, LMO_K, (640, 480))
+        weights = os.path.join(ROOT, "foundpose_torch", "_build", "bench_vits14_reg.pth")
+        os.makedirs(os.path.dirname(weights), exist_ok=True)
+        torch.save(state_dict_from_jax_params(params, vit_cfg), weights)
+
+        # gen_templates at configs/gen_templates/lmo.json, on the native
+        # rasterizer (built from native/ at first use; its numpy fallback is
+        # ~47x slower).
+        from foundpose_torch.renderer import rasterizer
+
+        t0 = time.perf_counter()
+        native = rasterizer._get_native() is not None
+        res["rasterizer_load_s"] = time.perf_counter() - t0
+        log(10, f"native rasterizer loaded {native} ({res['rasterizer_load_s']:.2f} s, build "
+                "included when the checkout had none)")
+        check(native, "native/librasterizer.so could not be built or loaded")
+        tpl_opts = config_util.load_opts(gen_templates.GenTemplatesOpts, [
+            "--opts-path", GT_CONFIG, "--set", f"bop_root={root}/bop",
+            "--set", f"output_dir={root}/templates", "--set", f"object_lids=[{lid}]"])
+        t0 = time.perf_counter()
+        gen_templates.synthesize_templates(tpl_opts)
+        tpl_s = time.perf_counter() - t0
+        with open(os.path.join(root, "templates", "lmo", "v1", str(lid), "metadata.json")) as f:
+            num_t = len(json.load(f))
+        threads = os.cpu_count()
+        log(10, f"gen_templates {os.path.relpath(GT_CONFIG, ROOT)}: {len(mesh.faces)}-face mesh of "
+                f"{diameter:.1f} mm, {num_t} templates of {tpl_opts.crop_size[0]} px (SSAA "
+                f"{tpl_opts.ssaa_factor:g}, {threads} render threads) in {tpl_s:.2f} s -> "
+                f"{num_t / tpl_s:.1f} templates/s (host work)")
+        check(num_t == 798, f"{num_t} templates, want 57 x 14 = 798")
+
+        # gen_repre at configs/gen_repre/lmo.json: the main path of this slice.
+        opts = config_util.load_opts(gen_repre.GenRepreOpts, [
+            "--opts-path", GR_CONFIG, "--set", f"templates_dir={root}/templates",
+            "--set", f"output_dir={root}/repre", "--set", f"weights_path={weights}",
+            "--set", f"object_lids=[{lid}]"])
+        check(opts.device == "cuda" and not opts.use_fused_block and opts.cluster_num == 2048
+              and opts.pca_components == 256, f"options {opts}")
+        model = gen_repre.load_model(opts, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with StageLog(torch) as stages:
+            t0 = time.perf_counter()
+            gen_repre.generate_repre_from_list(opts, model=model)
+            repre_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        repre = load_repre(os.path.join(root, "repre", "lmo", "v1", str(lid)), device=device)
+        n_feats = int(repre.feat_vectors.shape[0])
+        res.update(templates=num_t, gen_templates_s=tpl_s, render_threads=threads,
+                   gen_templates_per_s=num_t / tpl_s, gen_repre_s=repre_s,
+                   gen_repre_templates_per_s=num_t / repre_s, stages_s=stages.stages,
+                   launches=launches, peak_mem_bytes=peak, features=n_feats,
+                   registration_bytes=num_t * 900 * 384 * 4, pca_bank_bytes=num_t * 900 * 256 * 4)
+        log(10, f"gen_repre {os.path.relpath(GR_CONFIG, ROOT)} (ViT-S/14-reg layer 9, unfused f32, "
+                f"PCA 384 -> 256 from 100,000 rows, 2048 words, 50 Lloyd steps): {repre_s:.2f} s "
+                f"-> {num_t / repre_s:.1f} templates/s; stages s " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in stages.stages.items())
+                + f"; {n_feats} valid features; peak {peak / 2**30:.2f} GiB (registration "
+                f"outputs {res['registration_bytes'] / 1e9:.2f} GB, PCA'd bank "
+                f"{res['pca_bank_bytes'] / 1e9:.2f} GB); launches {launches}")
+        check(launches["attention"] == 500 and launches["vit_block"] == 0
+              and launches["buddies"] == 0,
+              f"gen_repre launches {launches}: want attention 500 (50 chunks x 10 layers), "
+              "vit_block and buddies 0")
+        check(repre.num_templates == 798 and tuple(repre.word_centroids.shape) == (2048, 256)
+              and repre.feat_vectors.shape[1] == 256, "representation shapes")
+        for name in ("feat_vectors", "vertices", "word_centroids", "word_idfs", "template_descs"):
+            check(bool(torch.isfinite(getattr(repre, name)).all()), f"{name} not finite")
+        check(bool(repre.bank_mask.any(dim=1).all()), "a template has no valid feature")
+
+        # One registration chunk under the CUDA sync debug mode; the uint16
+        # depth's copy to the card and its conversion there.
+        u16 = np.array([0, 1, 40000, 65535], np.uint16)
+        check(torch.equal(to_device(u16, device).float().cpu(),
+                          torch.tensor([0.0, 1.0, 40000.0, 65535.0])), "uint16 on the card")
+        with open(os.path.join(root, "templates", "lmo", "v1", str(lid), "metadata.json")) as f:
+            chunk_md = json.load(f)[:16]
+        images, depths, masks, cam_f, cam_c, cam_t, (w, h) = gen_repre.load_template_arrays(chunk_md)
+        cams = [to_device(a, device) for a in (cam_f, cam_c, cam_t)]
+        torch.cuda.synchronize()
+        bank = repre.feat_vectors
+        bank_mask = torch.ones(bank.shape[0], dtype=torch.bool, device=device)
+
+        def sync_count(fn):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with torch.no_grad():
+                        out = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            return out, [str(x.message) for x in caught if "called a synchronizing" in str(x.message)]
+
+        f_chunk, syncs = sync_count(lambda: gen_repre.register_templates(
+            model, opts.grid_cell_size, (w, h), to_device(images, device),
+            to_device(depths, device), None, *cams)[0])
+        ids, init_syncs = sync_count(lambda: kmeans._kmeanspp_init(
+            bank, 32, torch.Generator(device).manual_seed(0), bank_mask))
+        _, lloyd_syncs = sync_count(lambda: kmeans._lloyd(bank, bank[ids], bank_mask, 2))
+        res.update(chunk_host_syncs=len(syncs), init_host_syncs=len(init_syncs),
+                   lloyd_host_syncs=len(lloyd_syncs))
+        log(10, f"under the CUDA sync debug mode: one registration chunk (16 templates, pinned "
+                f"copies, ViT, erosion, grid, lifting) {len(syncs)} host syncs, 32 k-means++ "
+                f"draws on the saved bank {len(init_syncs)}, 2 Lloyd steps {len(lloyd_syncs)} "
+                f"(tol 0 each); features {tuple(f_chunk.shape)}")
+        check(not (syncs or init_syncs or lloyd_syncs),
+              f"the builder synchronised with the host: {(syncs + init_syncs + lloyd_syncs)[:3]}")
+
+        # The busy share of one whole gen_repre call.
+        prof_opts = dataclasses.replace(opts, output_dir=f"{root}/repre_prof")
+        res["profile"] = profile_call(
+            torch, lambda: gen_repre.generate_repre_from_list(prof_opts, model=model), 10,
+            "profile_builder.txt", what="gen_repre of one LM-O object")
+        del model, repre, bank
+
+        # The port's infer() at lmo.json on the rendered split.
+        inf_opts = config_util.load_opts(infer.InferOpts, [
+            "--opts-path", LMO_CONFIG, "--set", f"bop_root={root}/bop",
+            "--set", f"repre_dir={root}/repre", "--set", f"detections_path={det_path}",
+            "--set", f"output_dir={root}/out", "--set", f"weights_path={weights}",
+            "--set", f"object_lids=[{lid}]", "--set", "dataset_crop_size=[640, 480]"])
+        reset_counts()
+        t0 = time.perf_counter()
+        counts = infer.infer(inf_opts)
+        infer_s = time.perf_counter() - t0
+        inf_launches = read_counts()
+        r_err, t_err = pose_errors(f"{root}/out", lid, poses)
+        csv = sub.prepare(sub.PrepareBopSubmissionOpts(object_dataset="lmo",
+                                                       results_dir=f"{root}/out"))
+        with open(csv) as f:
+            rows = f.read().strip().split("\n")[1:]
+        ar = eval_ar.evaluate(eval_ar.EvalArOpts(object_dataset="lmo", submission_path=csv,
+                                                 bop_root=os.path.join(root, "bop")))
+        res["infer"] = dict(wall_s=infer_s, counts=counts, launches=inf_launches,
+                            estimates=len(r_err), rot_err_deg=r_err, t_err_mm=t_err,
+                            csv_rows=len(rows), ar=ar)
+        log(10, f"infer() at lmo.json on {len(poses)} rendered 640x480 images (LM-O camera) "
+                f"with the card-built representation: {infer_s:.2f} s, {len(r_err)} of "
+                f"{len(poses)} detections estimated, median error {np.median(r_err):.2f} deg / "
+                f"{np.median(t_err):.2f} mm (random weights), CSV {len(rows)} rows, AR "
+                + ", ".join(f"{k} {v:.4f}" for k, v in ar.items()) + f"; launches {inf_launches}")
+        check(counts == {lid: len(poses)} and len(r_err) == len(poses) == len(rows),
+              f"infer: {counts}, {len(r_err)} estimates, {len(rows)} CSV rows")
+        check(all(np.isfinite(v) for v in ar.values()), f"AR not finite: {ar}")
+    return res
+
+
+def builder_small(torch, device):
+    """Leg (b): the integration test's world (tests/test_integration.py)
+    built on the card and on the CPU from the same templates, the same
+    weights and the same k-means init; then infer() on the card with the
+    card-built representation against the GT pose."""
+    import tempfile
+
+    from foundpose_torch.ops import kmeans
+    from foundpose_torch.ops.pca import pca_inverse_transform, pca_transform
+    from foundpose_torch.pipeline import gen_repre, gen_templates, infer
+    from foundpose_torch.repre import load_repre
+
+    lid = BUILD_LID
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="foundpose_build_small_") as root:
+        mesh = textured_icosahedron()
+        diameter = float(np.linalg.norm(mesh.vertices.max(0) - mesh.vertices.min(0)))
+        poses = view_poses(9, 300.0, (3,), (0.0,))
+        det_path = write_rendered_split(
+            torch, root, mesh, lid, diameter, poses,
+            np.array([[300.0, 0, 113.5], [0, 300.0, 113.5], [0, 0, 1.0]]), (228, 228))
+        gen_templates.synthesize_templates(gen_templates.GenTemplatesOpts(
+            object_lids=[lid], min_num_viewpoints=9, num_inplane_rotations=4,
+            depth_range=(300.0, 300.0), ssaa_factor=2.0, crop_size=(140, 140),
+            bop_root=f"{root}/bop", output_dir=f"{root}/templates"))
+        with open(os.path.join(root, "templates", "lmo", "v1", str(lid), "metadata.json")) as f:
+            metadata = json.load(f)
+        tpl_dir = os.path.join(root, "templates", "lmo", "v1", str(lid))
+
+        # One k-means init for both devices: the CPU build's draw, replayed.
+        init_ids, chunks = [], {}
+        orig_init, orig_register = kmeans._kmeanspp_init, gen_repre.register_templates
+
+        def same_init(samples, k, generator, mask, norms=None):
+            if not init_ids:
+                init_ids.append(orig_init(samples, k, generator, mask, norms).cpu())
+            return init_ids[0].to(samples.device)
+
+        built = {}
+        for key, dev in (("cpu", "cpu"), ("card", str(device))):
+            chunks[key] = []
+
+            def recording(*args, **kwargs):
+                out = orig_register(*args, **kwargs)
+                chunks[key].append([a.cpu() for a in out])
+                return out
+
+            opts = gen_repre.GenRepreOpts(
+                object_lids=[lid], extractor_name=SMALL_EXTRACTOR, pca_components=16,
+                cluster_num=64, batch_size=8, vit_overrides=SMALL_VIT, device=dev,
+                templates_dir=f"{root}/templates", output_dir=f"{root}/repre_{key}")
+            kmeans._kmeanspp_init, gen_repre.register_templates = same_init, recording
+            try:
+                t0 = time.perf_counter()
+                gen_repre.generate_repre_from_list(opts)
+                built[key] = time.perf_counter() - t0
+            finally:
+                kmeans._kmeanspp_init, gen_repre.register_templates = orig_init, orig_register
+        rc, rg = (load_repre(f"{root}/repre_{k}/lmo/v1/{lid}", device="cpu") for k in ("cpu", "card"))
+        fc, fg = (torch.cat([c[0] for c in chunks[k]]) for k in ("cpu", "card"))
+        feat_rel = float(torch.linalg.vector_norm(fg - fc) / torch.linalg.vector_norm(fc))
+        vert_err = float((rg.vertices - rc.vertices).abs().max())
+        same_ids = torch.equal(rg.feat_to_template_ids, rc.feat_to_template_ids)
+        same_valid = torch.equal(rg.bank_mask, rc.bank_mask) and all(
+            torch.equal(a[2], b[2]) for a, b in zip(chunks["card"], chunks["cpu"]))
+        x = fc.reshape(-1, fc.shape[-1])
+        rec_c = pca_inverse_transform(rc.raw_projector, pca_transform(rc.raw_projector, x))
+        rec_g = pca_inverse_transform(rg.raw_projector, pca_transform(rg.raw_projector, x))
+        pca_rel = float(torch.linalg.vector_norm(rec_g - rec_c) / torch.linalg.vector_norm(rec_c))
+        desc_err = float((rg.template_descs - rc.template_descs).abs().max())
+        res.update(templates=len(metadata), build_s=built, feat_rel_l2=feat_rel,
+                   vert_max_abs_mm=vert_err, same_template_ids=same_ids, same_validity=same_valid,
+                   pca_reconstruction_rel_l2=pca_rel, desc_max_abs=desc_err)
+        log(10, f"card vs CPU, gen_repre on the integration test's world ({len(metadata)} "
+                f"templates of 140 px, ViT {SMALL_VIT}, same k-means init; "
+                f"{built['card']:.2f} s / {built['cpu']:.2f} s): registration features rel. L2 "
+                f"{feat_rel:.2e} (tol {BUILD_FEAT_REL_L2}), vertices {vert_err:.2e} mm (tol "
+                f"{BUILD_VERT_ATOL}), template ids equal {same_ids}, validity equal {same_valid}, "
+                f"PCA reconstruction rel. L2 {pca_rel:.2e} (tol {BUILD_PCA_REL_L2}), tf-idf "
+                f"descriptors {desc_err:.2e} (tol {BUILD_DESC_ATOL})")
+        check(feat_rel <= BUILD_FEAT_REL_L2 and vert_err <= BUILD_VERT_ATOL and same_ids
+              and same_valid and pca_rel <= BUILD_PCA_REL_L2 and desc_err <= BUILD_DESC_ATOL,
+              "the card's and the CPU's builds disagree")
+
+        # The chain: the card-built representation drives infer() on the card.
+        out = f"{root}/out"
+        infer.infer(infer.InferOpts(
+            object_lids=[lid], extractor_name=SMALL_EXTRACTOR, crop_size=(140, 140),
+            match_top_n_templates=3, match_top_k_buddies=50, pnp_ransac_iter=200, batch_size=2,
+            vit_overrides=SMALL_VIT, dataset_crop_size=(224, 224), bop_root=f"{root}/bop",
+            repre_dir=f"{root}/repre_card", detections_path=det_path, output_dir=out,
+            device=str(device)))
+        r_err, t_err = pose_errors(out, lid, poses)
+        res.update(rot_err_deg=r_err, t_err_mm=t_err)
+        log(10, f"infer() on the card with the card-built representation: {len(r_err)} estimate, "
+                f"error {r_err} deg / {t_err} mm (bounds < 15 deg, < 30 mm: "
+                f"tests/test_integration.py)")
+        check(len(r_err) == 1 and r_err[0] < 15.0 and t_err[0] < 30.0,
+              "the chain did not recover the GT pose")
+    return res
+
+
+def textured_icosahedron(scale=40.0):
+    """tests/test_integration.make_textured_icosahedron: an icosahedron of
+    `scale` mm with vertex colours from seed 7."""
+    from foundpose_torch.data.ply import Mesh
+
+    mesh = icosphere(0, 1.0, seed=0)
+    rng = np.random.default_rng(7)
+    colors = rng.integers(40, 255, size=(12, 3)).astype(np.uint8)
+    return Mesh(vertices=mesh.vertices * scale, faces=mesh.faces, colors=colors)
+
+
+def phase_builder(torch, params, vit_cfg, device):
+    """The offline builder on the card (see the module docstring)."""
+    return dict(lmo=builder_lmo(torch, params, vit_cfg, device),
+                small=builder_small(torch, device))
+
+
 def phase_probe(torch):
     """The probe's own entry point, counts from zero."""
     from foundpose_torch.benchmarks import micro_int8
@@ -1504,26 +1998,33 @@ def main():
         report["probe"] = phase_probe(torch)
         report["cli"] = phase_cli(torch, params, vit_cfg, device,
                                   report["main_path"]["median_latency_s"])
+    report["builder"] = phase_builder(torch, params, vit_cfg, device)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    # Each kernel's launches come from the run of its own path: the lmo.json
-    # main path (phase 3), the lmo_exact.json serving path (phase 5), the
-    # probe's entry point (phase 6).
+    # Each kernel's launches come from the run of its own path, counted from
+    # zero: the lmo.json main path (phase 3), the lmo_exact.json serving path
+    # (phase 5), the probe's entry point (phase 6), and for attention this
+    # slice's path, gen_repre at configs/gen_repre/lmo.json (phase 10).
     path_launches = {
         "vit_block": report["main_path"]["launches"]["vit_block"],
         "buddies": report["main_path"]["launches"]["buddies"],
         "ransac_score": report["main_path"]["launches"]["ransac_score"],
-        "attention": report["serving"]["launches"]["attention"],
+        "attention": report["builder"]["lmo"]["launches"]["attention"],
         "micro_mm": report["probe"]["launches"]["mm_int8"],
     }
+    by_path = {"lmo.json": report["main_path"]["launches"],
+               "lmo_exact.json serving": report["serving"]["launches"],
+               "gen_repre lmo.json": report["builder"]["lmo"]["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         k = report["kernels"][name]
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=path_launches[name], **{key: k[key] for key in keys})
+        if name != "micro_mm":
+            entry["launches_by_path"] = {path: c[name] for path, c in by_path.items()}
         if "bf16" in k:  # the other dtype of attention (f32 above) and the probe (int8 above)
             entry["bf16"] = {key: k["bf16"][key] for key in keys}
             if name == "micro_mm":

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from foundpose_torch.cameras import build_crop_cameras
-from foundpose_torch.models import bench_weights, dinov2
-from foundpose_torch.models.weights import load_checkpoint, state_dict_from_jax_params
+from foundpose_torch.models import dinov2
+from foundpose_torch.models.weights import load_or_init
 from foundpose_torch.ops.warp import make_single_image_warp
 from foundpose_torch.pipeline import inference
 from foundpose_torch.pipeline.multi_object import pose_from_crops_multi
@@ -58,13 +58,7 @@ class PoseEngine:
         self.vit_cfg = dinov2.parse_model_name(extractor_name)
         if extractor_overrides:
             self.vit_cfg = dataclasses.replace(self.vit_cfg, **extractor_overrides)
-        if weights_path:
-            model = load_checkpoint(weights_path, self.vit_cfg)
-        else:
-            model = dinov2.DinoV2(self.vit_cfg)
-            params = bench_weights.init_params(self.vit_cfg, torch.Generator().manual_seed(seed))
-            model.load_state_dict(state_dict_from_jax_params(params, self.vit_cfg))
-        self.model = model.to(self.device).eval()
+        self.model = load_or_init(self.vit_cfg, weights_path, seed).to(self.device)
         self.config = config or inference.InferenceConfig()
         self.batch_size = batch_size
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

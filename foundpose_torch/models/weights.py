@@ -12,11 +12,12 @@ conv kernels in HWIO and linear kernels as (in, out);
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from foundpose_torch.models import bench_weights
 from foundpose_torch.models.dinov2 import DinoV2, DinoV2Config
 
 
@@ -35,6 +36,17 @@ def load_checkpoint(path: str, cfg: DinoV2Config) -> DinoV2:
             f"checkpoint {path} does not fit {cfg.variant}: missing {missing}, "
             f"unexpected {unexpected}"
         )
+    return model.eval()
+
+
+def load_or_init(cfg: DinoV2Config, weights_path: Optional[str] = None, seed: int = 0) -> DinoV2:
+    """DinoV2 (eval mode, on the CPU) from an official-name checkpoint, or
+    without one bench_weights' random weights from `seed`."""
+    if weights_path:
+        return load_checkpoint(weights_path, cfg)
+    model = DinoV2(cfg)
+    params = bench_weights.init_params(cfg, torch.Generator().manual_seed(seed))
+    model.load_state_dict(state_dict_from_jax_params(params, cfg))
     return model.eval()
 
 

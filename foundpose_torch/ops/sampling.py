@@ -85,6 +85,26 @@ def sample_grid_features(
     return sample_feature_map(feature_map_hwc, points, image_size)
 
 
+def lift_points_to_3d(
+    points: torch.Tensor, depth_image: torch.Tensor, cam_f: torch.Tensor, cam_c: torch.Tensor
+) -> torch.Tensor:
+    """Camera-space 3D points [..., N, 3] of image points [N, 2] (or
+    [..., N, 2]) on depth images [..., H, W], with intrinsics cam_f, cam_c
+    [..., 2]: the ray through each point at the averaged focal, scaled to
+    the depth read at the floored pixel (clamped to the image). (reference:
+    utils/feature_util.py:134-157)"""
+    h, w = depth_image.shape[-2], depth_image.shape[-1]
+    focal = 0.5 * (cam_f[..., 0] + cam_f[..., 1])
+    xy = points - cam_c[..., None, :]
+    ray = torch.cat([xy, focal[..., None, None].expand(*xy.shape[:-1], 1)], dim=-1)
+    xi = torch.clamp(torch.floor(points[..., 0]).long(), 0, w - 1)
+    yi = torch.clamp(torch.floor(points[..., 1]).long(), 0, h - 1)
+    flat = depth_image.reshape(*depth_image.shape[:-2], h * w)
+    idx = (yi * w + xi).expand(*flat.shape[:-1], xy.shape[-2])
+    depths = torch.gather(flat, -1, idx)
+    return ray * (depths / ray[..., 2])[..., None]
+
+
 def subsample_points(
     valid: torch.Tensor, max_count: int, generator: Optional[torch.Generator] = None
 ) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Camera-to-camera image warping as gather-based resampling (counterpart of
-foundpose_tpu/ops/warp.py; depth warps come later).
+"""Camera-to-camera image and depth warping as gather-based resampling
+(counterpart of foundpose_tpu/ops/warp.py).
 
 The samplers port the JAX package's arithmetic rather than calling
 F.grid_sample: integer coordinates are pixel centres (cv2.remap's
@@ -127,6 +127,27 @@ def warp_image(
     if interpolation == "nearest":
         return nearest_sample(src_image, src_win)
     raise ValueError(f"unknown interpolation: {interpolation}")
+
+
+def warp_depth_image(
+    src_camera: PinholeCamera,
+    dst_camera: PinholeCamera,
+    src_depth: torch.Tensor,
+    depth_check: bool = True,
+) -> torch.Tensor:
+    """Warps an [H, W] depth image into one destination camera, re-projecting
+    each valid (> 0) depth into the destination's eye frame before the
+    nearest-neighbour warp. (reference: utils/misc.py:522-556)"""
+    h, w = src_depth.shape
+    rays = src_camera.window_to_eye(_pixel_grid(h, w, src_depth.device))  # unit rays
+    valid = src_depth > 0
+    rz = torch.where(rays[..., 2] == 0, 1.0, rays[..., 2])
+    scale = torch.where(valid, src_depth / rz, 0.0)
+    pts_dst = dst_camera.world_to_eye(src_camera.eye_to_world(rays * scale[..., None]))
+    new_depth = torch.where(valid, pts_dst[..., 2], 0.0)
+    return warp_image(
+        src_camera, dst_camera, new_depth, interpolation="nearest", depth_check=depth_check
+    )
 
 
 def make_single_image_warp(crop_size: Tuple[int, int]):

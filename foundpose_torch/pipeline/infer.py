@@ -38,7 +38,7 @@ import torch
 from foundpose_torch.cameras import build_crop_cameras
 from foundpose_torch.data import bop, detections as det_mod
 from foundpose_torch.eval.evaluator import EvaluatorPose
-from foundpose_torch.models import bench_weights, dinov2
+from foundpose_torch.models import dinov2
 from foundpose_torch.models import weights as weights_mod
 from foundpose_torch.ops.warp import make_single_image_warp
 from foundpose_torch.parallel import host_shard
@@ -673,14 +673,10 @@ def load_model(opts: InferOpts, device) -> Tuple[dinov2.DinoV2, inference.Infere
         )
     o = dataclasses.asdict(opts)
     vit_cfg = inference.vit_config_from_opts(o)
-    if opts.weights_path:
-        model = weights_mod.load_checkpoint(opts.weights_path, vit_cfg)
-    else:
+    if not opts.weights_path:
         logger.warning("No DINOv2 weights_path given; using random init.")
-        model = dinov2.DinoV2(vit_cfg)
-        params = bench_weights.init_params(vit_cfg, torch.Generator().manual_seed(0))
-        model.load_state_dict(weights_mod.state_dict_from_jax_params(params, vit_cfg))
-    return model.to(device).eval(), inference.inference_config_from_opts(o)
+    model = weights_mod.load_or_init(vit_cfg, opts.weights_path)
+    return model.to(device), inference.inference_config_from_opts(o)
 
 
 def _object_meta(opts: InferOpts, models_info, lid: int):

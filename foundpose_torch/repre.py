@@ -129,6 +129,46 @@ def stack_repres(repres) -> ObjectRepre:
     )
 
 
+def pad_templates(repre: ObjectRepre, multiple: int) -> ObjectRepre:
+    """Pads the template axis up to a multiple of `multiple`, so the
+    template-major banks split evenly over devices. Pad templates get
+    template_mask=False (retrieval scores them -inf, so they are never
+    selected), zero banks and edge-replicated cameras (never read for pad
+    rows, but zero intrinsics would be a trap for host code). Works on
+    single-object ([T, ...]) and stacked ([O, T, ...]) representations."""
+    axis = repre.template_descs.dim() - 2  # 0 = single, 1 = stacked
+    t = repre.template_descs.shape[axis]
+    t_pad = -(-t // multiple) * multiple
+    tmask = repre.template_mask
+    if tmask is None:
+        tmask = torch.ones(repre.template_descs.shape[: axis + 1], dtype=torch.bool,
+                           device=repre.template_descs.device)
+    if t_pad == t:
+        return dataclasses.replace(repre, template_mask=tmask)
+
+    def pad(a, edge=False):
+        extra = list(a.shape)
+        extra[axis] = t_pad - t
+        if edge:
+            last = a.narrow(axis, t - 1, 1)
+            return torch.cat([a, last.expand(*extra)], dim=axis)
+        return torch.cat([a, a.new_zeros(extra)], dim=axis)
+
+    cams = repre.template_cameras
+    return dataclasses.replace(
+        repre,
+        template_descs=pad(repre.template_descs),
+        bank_feats=pad(repre.bank_feats),
+        bank_vertices=pad(repre.bank_vertices),
+        bank_mask=pad(repre.bank_mask),
+        template_mask=pad(tmask),
+        template_cameras=dataclasses.replace(
+            cams, f=pad(cams.f, True), c=pad(cams.c, True),
+            T_world_from_eye=pad(cams.T_world_from_eye, True),
+        ),
+    )
+
+
 def build_padded_banks(
     feat_vectors: np.ndarray,
     vertices: np.ndarray,
@@ -272,5 +312,57 @@ def load_repre(repre_dir: str, device="cuda") -> ObjectRepre:
         extractor_name=meta.get("extractor_name", ""),
         feat_mask=arrays["feat_mask"],
         templates=arrays.get("templates"),
+        device=device,
+    )
+
+
+def load_torch_repre(repre_path: str, device="cuda") -> ObjectRepre:
+    """Reads a reference `repre.pth` (a torch pickle of the reference's
+    representation dataclass fields, utils/repre_util.py:34-83) into an
+    ObjectRepre on `device`. The file is unpickled, so read only files
+    this project or the reference wrote."""
+    obj = torch.load(repre_path, map_location="cpu", weights_only=False)
+
+    def arr(x):
+        return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    cams = obj["template_cameras_cam_from_model"]
+    cameras = PinholeCamera(
+        f=torch.as_tensor(np.stack([arr(c["f"]) for c in cams]), dtype=torch.float32),
+        c=torch.as_tensor(np.stack([arr(c["c"]) for c in cams]), dtype=torch.float32),
+        T_world_from_eye=torch.as_tensor(
+            np.stack([arr(c["T_world_from_eye"]) for c in cams]), dtype=torch.float32),
+        width=int(cams[0]["width"]),
+        height=int(cams[0]["height"]),
+    )
+    projector = None
+    if obj.get("feat_raw_projectors"):
+        p = obj["feat_raw_projectors"][0]
+        projector = PCA(
+            mean=torch.as_tensor(arr(p["mean"])),
+            components=torch.as_tensor(arr(p["components"])),
+            explained_variance=torch.as_tensor(arr(p["explained_variances"])),
+            whiten=bool(arr(p.get("whiten", np.asarray(False)))),
+        )
+    tdo = obj.get("template_desc_opts") or {}
+    cfg = TfidfConfig(
+        knn_k=int(tdo.get("tfidf_knn_k", 3)),
+        metric=str(tdo.get("tfidf_knn_metric", "l2")),
+        soft_assign=bool(tdo.get("tfidf_soft_assign", False)),
+        soft_sigma_squared=float(tdo.get("tfidf_soft_sigma_squared", 10.0)),
+    )
+    feat_opts = obj.get("feat_opts") or {}
+    return make_repre(
+        feat_vectors=arr(obj["feat_vectors"]).astype(np.float32),
+        vertices=arr(obj["vertices"]).astype(np.float32),
+        feat_to_template_ids=arr(obj["feat_to_template_ids"]).astype(np.int32),
+        word_centroids=arr(obj["feat_cluster_centroids"]).astype(np.float32),
+        word_idfs=arr(obj["feat_cluster_idfs"]).astype(np.float32),
+        template_descs=arr(obj["template_descs"]).astype(np.float32),
+        template_cameras=cameras,
+        raw_projector=projector,
+        tfidf_config=cfg,
+        extractor_name=str(feat_opts.get("extractor_name", "")),
+        templates=arr(obj["templates"]) if "templates" in obj else None,
         device=device,
     )

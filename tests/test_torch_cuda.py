@@ -246,6 +246,42 @@ def test_unfused_vit_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
 
 
+def test_builder_ops_on_the_card_match_the_cpu(dev):
+    """The builder's plain PyTorch ops on the card against the CPU: 12
+    well-separated blobs through Lloyd from one init (assignments 100%
+    equal, centroids within 1e-4), the k-means++ init's law on the card
+    (distinct, valid ids; no id of a masked row), the PCA projector
+    (reconstruction within 1e-4 relative L2), and depth lifting (1e-4)."""
+    from foundpose_torch.ops import kmeans, pca
+
+    rng = np.random.default_rng(0)
+    centres = rng.normal(size=(12, 16)) * 10.0
+    x = (centres[:, None] + 0.5 * rng.normal(size=(12, 50, 16))).reshape(-1, 16)
+    x = torch.from_numpy(np.concatenate([x, rng.normal(size=(20, 16)) + 300.0]).astype(np.float32))
+    mask = torch.arange(len(x)) < 600
+    init = x[torch.arange(0, 600, 50)]
+    ref = kmeans._lloyd(x, init, mask, 10)
+    got = kmeans._lloyd(x.to(dev), init.to(dev), mask.to(dev), 10)
+    assert torch.equal(got.assignments.cpu(), ref.assignments)
+    np.testing.assert_allclose(got.centroids.cpu().numpy(), ref.centroids.numpy(), atol=1e-4)
+    ids = kmeans._kmeanspp_init(x.to(dev), 40, torch.Generator(dev).manual_seed(0), mask.to(dev))
+    ids = ids.cpu()
+    assert len(set(ids.tolist())) == 40 and bool(mask[ids].all())
+
+    p_ref = pca.fit_pca(x[mask], 8)
+    p_got = pca.fit_pca(x[mask].to(dev), 8)
+    rec = [pca.pca_inverse_transform(p, pca.pca_transform(p, x[mask].to(p.mean.device))).cpu()
+           for p in (p_ref, p_got)]
+    assert float(torch.linalg.vector_norm(rec[1] - rec[0]) / torch.linalg.vector_norm(rec[0])) < 1e-4
+
+    depth = torch.rand(2, 30, 40, generator=torch.Generator().manual_seed(1)) * 500 + 100
+    pts = torch.rand(25, 2, generator=torch.Generator().manual_seed(2)) * 40
+    f, c = torch.tensor([[300.0, 301.0]] * 2), torch.tensor([[20.0, 15.0]] * 2)
+    lifted = sampling.lift_points_to_3d(pts.to(dev), depth.to(dev), f.to(dev), c.to(dev)).cpu()
+    np.testing.assert_allclose(lifted.numpy(), sampling.lift_points_to_3d(pts, depth, f, c).numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("shape", [(2, 128, 96, 256), (3, 132 * 128, 384, 1536)])
 def test_probe_kernels_match_twins(dev, shape):
     """int8 -> int32 exact; bf16 -> f32 within relative L2 1e-5. The first

@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 57
+    assert int(proc.stdout.strip()) >= 60
 
 
 @pytest.mark.parametrize("module", [
@@ -62,10 +62,12 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.pipeline.sweep", "foundpose_torch.renderer.base",
     "foundpose_torch.renderer.rasterizer", "foundpose_torch.vis.base",
     "foundpose_torch.vis.inference_vis", "foundpose_torch.vis.html_report",
+    "foundpose_torch.ops.kmeans", "foundpose_torch.pipeline.gen_templates",
+    "foundpose_torch.pipeline.gen_repre",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
-    """Each module of the serving, refinement, evaluation and CLI slices
-    imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    """Each module of the serving, refinement, evaluation, CLI and builder
+    slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
     blocked."""
     code = (
         "import sys, importlib\n"
@@ -96,7 +98,7 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, isolated):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("loader", ["make_repre", "load_repre"])
+@pytest.mark.parametrize("loader", ["make_repre", "load_repre", "load_torch_repre"])
 def test_repre_loaders_default_to_the_card(loader):
     """The representation loaders are entry points: they put the
     representation on the card unless the caller asks for the CPU."""
@@ -105,6 +107,23 @@ def test_repre_loaders_default_to_the_card(loader):
     from foundpose_torch import repre
 
     assert inspect.signature(getattr(repre, loader)).parameters["device"].default == "cuda"
+
+
+def test_gen_repre_defaults_to_the_card_and_never_falls_back():
+    """GenRepreOpts.device is "cuda", as the shipped configs leave it; asked
+    for the card on a machine without CUDA, the builder raises."""
+    from foundpose_torch.pipeline import gen_repre
+
+    import torch
+
+    with open(os.path.join(ROOT, "configs", "gen_repre", "lmo.json")) as f:
+        opts = gen_repre.GenRepreOpts(**json.load(f)["gen_repre_opts"])
+    assert opts.device == "cuda"
+    assert gen_repre.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gen_repre.resolve_device(opts.device)
 
 
 def test_inference_config_from_lmo_json():
