@@ -85,6 +85,33 @@ Phases (each prints one line and raises on failure):
      PCA reconstruction, tf-idf descriptors against stated tolerances),
      then infer() on the card with the card-built representation against
      the GT pose (< 15 deg, < 30 mm).
+  11 the multi-device layer (foundpose_torch/parallel) on one world: the 16
+     crops of object 1 in a 2-image split written as phase 9's, with its
+     LM-O-scale crop-world representation (798 templates), and injected
+     draws. (a) NCCL, world 1, mesh (1, 1), in this process: the step at
+     lmo.json against the single-device pose_from_crops. (b) 4 gloo ranks
+     sharing the card (foundpose_torch.parallel.launch; NCCL refuses two
+     ranks on one device): the (2, 2) step at lmo.json (fused block) and
+     the (1, 2, 2) tensor-parallel step at lmo_exact.json (its ViT
+     unfused in f32 on the attention kernel, 3 heads a rank) against the
+     single-device step at the same configuration; PoseEngine(mesh_shape=
+     (2, 2)) at lmo_exact.json, estimate() and estimate_mixed() with phase
+     5's objects, image and boxes, then estimate() of the split's object
+     on its image 0 (whose crops are templates of the crop-world
+     representation, so rows solve), against the single-device engine of
+     the same seed; the infer CLI at mesh_shape=[2, 2] against the single-
+     device CLI on the split. Template ids, best template and success
+     equal for every crop, R within 1e-4 and t within 1e-5 m (over every
+     crop for the data-parallel steps, over the crops both solved
+     elsewhere); launches per rank counted from zero around one request
+     (block 10 a rank on the (2, 2) step, attention 10 a rank under TP);
+     the median of 10 timed requests per mesh, labelled "gloo, 4 ranks on
+     one card: not a multi-card figure". Each rank of the (2, 2) step
+     also runs every stage on its rows from the single-device chain's
+     inputs (ViT, query features and PCA, tf-idf retrieval, bank fetch,
+     matching, solve) against the single-device stage on all 16 crops,
+     and reports each stage's largest difference (the fetch must be
+     bit-equal). A rank's failure fails the run.
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -967,13 +994,13 @@ def serving_request(n=16, seed=3):
     return image, boxes
 
 
-def phase_serving(torch, params, device):
-    """PoseEngine at lmo_exact.json on the card (see the module docstring)."""
-    from foundpose_torch.engine import PoseEngine
+def serving_engine_kw(torch, params):
+    """PoseEngine's arguments at lmo_exact.json: the calibrated weights
+    written as an official-name .pth into foundpose_torch/_build, the
+    configuration and the ViT overrides. Returns (kw, config, vit_cfg)."""
     from foundpose_torch.models import dinov2
     from foundpose_torch.models.weights import state_dict_from_jax_params
     from foundpose_torch.pipeline import inference
-    from foundpose_torch.synthetic import realistic_repre
 
     with open(LMO_EXACT_CONFIG) as f:
         opts = json.load(f)
@@ -990,6 +1017,16 @@ def phase_serving(torch, params, device):
         extractor_overrides={f.name: getattr(vit_cfg, f.name) for f in dataclasses.fields(vit_cfg)
                              if getattr(vit_cfg, f.name) != getattr(named, f.name)},
     )
+    return kw, config, vit_cfg
+
+
+def phase_serving(torch, params, device):
+    """PoseEngine at lmo_exact.json on the card (see the module docstring)."""
+    from foundpose_torch.engine import PoseEngine
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.synthetic import realistic_repre
+
+    kw, config, vit_cfg = serving_engine_kw(torch, params)
     engine = PoseEngine(**kw, device=device)
     check(not engine.vit_cfg.use_fused_block and config.compute_dtype == torch.float32,
           "lmo_exact.json did not resolve to the unfused f32 path")
@@ -1129,9 +1166,9 @@ def rle_counts(mask):
     return [0] + counts if flat[0] else counts
 
 
-def write_split(torch, root, seed=0):
+def write_split(torch, root, seed=0, n_images=CLI_IMAGES):
     """A synthetic LM-O-like BOP split under `root`: one test scene of
-    CLI_IMAGES 640x480 PNGs (LM-O's camera), objects CLI_LIDS with an
+    n_images 640x480 PNGs (LM-O's camera), objects CLI_LIDS with an
     octahedron PLY of LM-O's diameter each, and per object per image
     CLI_DETS GT instances and CNOS detections (box, rectangular mask,
     score). Returns the detections file's path."""
@@ -1146,7 +1183,7 @@ def write_split(torch, root, seed=0):
     os.makedirs(os.path.join(scene, "rgb"))
     os.makedirs(models)
     cams, gts, infos, dets = {}, {}, {}, []
-    for im_id in range(CLI_IMAGES):
+    for im_id in range(n_images):
         Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
             os.path.join(scene, "rgb", f"{im_id:06d}.png"))
         cams[str(im_id)] = {"cam_K": LMO_K.flatten().tolist(), "depth_scale": 1.0}
@@ -1944,6 +1981,485 @@ def phase_probe(torch):
     return dict(rows=rows, launches=launches)
 
 
+# Phase 11: the multi-device layer. The (data, bank) and (data, bank,
+# model) meshes run as 4 gloo ranks sharing the one card (NCCL refuses two
+# ranks on one device); (1, 1) runs under NCCL in this process. Their times
+# are labelled MESH_LABEL wherever they are printed.
+MESH_WORLD = 4
+MESH_TIMED = 10
+MESH_LABEL = "gloo, 4 ranks on one card: not a multi-card figure"
+# name -> (mesh shape, config): the (2, 2) step at lmo.json, and the
+# tensor-parallel step, whose ViT runs unfused (as the JAX package's TP
+# path), at lmo_exact.json's f32 against the single-device unfused f32 ViT.
+MESH_STEPS = {"step (2, 2) lmo.json": ((2, 2), LMO_CONFIG),
+              "TP step (1, 2, 2) lmo_exact.json": ((1, 2, 2), LMO_EXACT_CONFIG)}
+# The engine's id for the split's object (1 and 2 are phase 5's objects).
+SPLIT_OBJ = 3
+
+
+def mesh_world(torch, config_path, device, root):
+    """A step's inputs on the split phase 11 writes under `root`: the 16
+    crops of object CLI_LIDS[0] in its 2 images, its representation (cast
+    to the configuration's dtype), the model under the configuration's
+    ViT, injected draws from a seed. Returns (model, repre, crops, masks,
+    cams, config, draws)."""
+    import pickle
+
+    from foundpose_torch.models.weights import load_checkpoint
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.repre import load_repre
+
+    with open(config_path) as f:
+        opts = json.load(f)
+    config = inference.inference_config_from_opts(opts)
+    model = load_checkpoint(os.path.join(root, "vits14_reg.pth"),
+                            inference.vit_config_from_opts(opts)).to(device)
+    repre = load_repre(os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])), device=device)
+    with open(os.path.join(root, "crops.pkl"), "rb") as f:
+        crops, masks, cams = (a.to(device) for a in pickle.load(f))  # crops, masks, cameras
+    draws = torch.as_tensor(np.random.default_rng(11).integers(
+        0, config.top_k_buddies, (16, config.top_n_templates, config.pnp_ransac_iter, 6)),
+        device=device)
+    return model, repre.cast_banks(config.compute_dtype), crops, masks, cams, config, draws
+
+
+def outputs_np(out):
+    return {f.name: getattr(out, f.name).float().cpu().numpy() for f in dataclasses.fields(out)}
+
+
+def mesh_requests(torch, call):
+    """One request from zero counts (its outputs and launches), then
+    MESH_TIMED timed requests (host clock to torch.cuda.synchronize())."""
+    reset_counts()
+    out = call()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    lat = []
+    for _ in range(MESH_TIMED):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return dict(outputs=outputs_np(out), launches=launches, latency_s=lat,
+                median_s=float(np.median(lat)))
+
+
+def compare_poses(got, ref, all_crops):
+    """Decisions and pose differences of two outputs (numpy dicts): poses
+    over every crop when `all_crops`, else over the crops both solved."""
+    both = got["success"].astype(bool) & ref["success"].astype(bool)
+    sel = np.ones_like(both) if all_crops else both
+    res = dict(
+        same_template_ids=bool((got["template_ids"] == ref["template_ids"]).all()),
+        same_best_template=bool((got["best_template"] == ref["best_template"]).all()),
+        same_success=bool((got["success"] == ref["success"]).all()),
+        both_succeeded=int(both.sum()), poses_over="all crops" if all_crops else "both solved",
+        max_abs_R=float(np.abs(got["R_m2c"] - ref["R_m2c"])[sel].max(initial=0.0)),
+        max_abs_t=float(np.abs(got["t_m2c"] - ref["t_m2c"])[sel].max(initial=0.0)),
+    )
+    res["ok"] = (res["same_template_ids"] and res["same_best_template"] and res["same_success"]
+                 and res["max_abs_R"] <= REFINE_WORLD_R_ATOL
+                 and res["max_abs_t"] <= REFINE_WORLD_T_ATOL)
+    return res
+
+
+def split_request(root, det_path):
+    """Image 0 of the split phase 11 writes under `root` and the boxes
+    (xyxy) of object CLI_LIDS[0]'s detections in it."""
+    from PIL import Image
+
+    image = np.asarray(Image.open(os.path.join(root, "bop", "lmo", "test", "000001", "rgb",
+                                               "000000.png")).convert("RGB"))
+    with open(det_path) as f:
+        dets = json.load(f)
+    boxes = [np.array([x, y, x + w, y + h], np.float32) for d in dets
+             if d["image_id"] == 0 and d["category_id"] == CLI_LIDS[0] for x, y, w, h in [d["bbox"]]]
+    return image, boxes
+
+
+def engine_mesh_calls(engine, image, boxes, split):
+    """The compared engine calls: estimate() of object 1, estimate_mixed()
+    over objects 1 and 2 (alternating), then estimate() of the split's
+    object on its image 0. split = (repre, image, boxes); its repre is
+    registered as SPLIT_OBJ after estimate_mixed(), which stacks objects
+    1 and 2 only."""
+    dets = [{"obj_id": 1 + i % 2, "box_xyxy": bx} for i, bx in enumerate(boxes)]
+    calls = [engine.estimate(1, image, boxes, LMO_K), engine.estimate_mixed(image, dets, LMO_K)]
+    engine.register_object(SPLIT_OBJ, split[0])
+    return calls + [engine.estimate(SPLIT_OBJ, split[1], split[2], LMO_K)]
+
+
+def engine_rows(calls):
+    return [{k: np.asarray(r[k]) for k in ("success", "best_template", "quality", "R_m2c", "t_m2c")}
+            for call in calls for r in call]
+
+
+def mesh_stage_diffs(torch, mesh, model, repre, crops, masks, cams, config, draws):
+    """Each stage of the mesh step on this rank's rows, fed the single-
+    device chain's inputs (their rows), against the single-device stage on
+    the whole batch (its rows kept): {stage: largest absolute difference},
+    0.0 when bit-equal, and the retrieval's count of differing ids. The
+    first non-zero stage is where the mesh step departs from the
+    single-device step; the last entry repeats the single-device step as a
+    control of its own run-to-run determinism."""
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.ops.pca import pca_transform
+    from foundpose_torch.ops.tfidf import tfidf_retrieve
+    from foundpose_torch.parallel import mesh as mesh_mod
+    from foundpose_torch.parallel import sharded_inference as shd
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.pose import corresp, pnp
+    from foundpose_torch.repre import pad_templates
+
+    def diff(a, b):
+        a, b = a.double(), b.double()
+        same = (a == b) | (a.isnan() & b.isnan())
+        return float(torch.where(same, 0.0, (a - b).abs()).max()) if a.numel() else 0.0
+
+    def take(c, rows):
+        return type(c)(**{f.name: getattr(c, f.name)[rows] for f in dataclasses.fields(c)})
+
+    rows = mesh_mod.data_slice(mesh, crops.shape[0])
+    shard = mesh_mod.shard_repre(pad_templates(repre, mesh_mod.axis_size(mesh, "bank")), mesh)
+    images = inference.preprocess_crops(crops, config)
+    fm = dinov2.extract_facet(model, images)["feature_maps"].float()
+    res = {"vit": diff(dinov2.extract_facet(model, images[rows])["feature_maps"].float(),
+                       fm[rows])}
+
+    def query(fmaps, m):
+        points, feats, valid = inference.query_features_from_map(
+            fmaps, m.float(), config.crop_size, config.grid_cell_size)
+        return points, pca_transform(repre.raw_projector, feats).to(config.compute_dtype), valid
+
+    points, feats, valid = query(fm, masks)
+    res["query features + PCA"] = diff(query(fm[rows], masks[rows])[1], feats[rows])
+    n = config.top_n_templates
+    tids, tscores = tfidf_retrieve(feats, repre.word_centroids, repre.word_idfs,
+                                   repre.template_descs, top_n=n, config=repre.tfidf_config,
+                                   query_mask=valid, template_mask=repre.template_mask)
+    whole_ids, whole_scores = tfidf_retrieve(
+        feats[rows], repre.word_centroids, repre.word_idfs, repre.template_descs, top_n=n,
+        config=repre.tfidf_config, query_mask=valid[rows], template_mask=repre.template_mask)
+    res["retrieval, rows on the whole bank: scores"] = diff(whole_scores, tscores[rows])
+    res["retrieval, rows on the whole bank: ids differing"] = int(
+        (whole_ids != tids[rows]).sum())
+    shard_ids, shard_scores = shd._retrieve_sharded(
+        feats[rows], valid[rows], shard.word_centroids, shard.word_idfs, shard.template_descs,
+        n, shard.tfidf_config, mesh, template_mask_local=shard.template_mask)
+    res["retrieval, sharded: scores"] = diff(shard_scores, tscores[rows])
+    res["retrieval, sharded: ids differing"] = int((shard_ids != tids[rows]).sum())
+    fetched = shd._fetch_banks(tids[rows], shard.bank_feats, shard.bank_vertices,
+                               shard.bank_mask, mesh)
+    sel = tids[rows].long()
+    res["bank fetch"] = max(diff(f, b[sel]) for f, b in zip(
+        fetched, (repre.bank_feats, repre.bank_vertices, repre.bank_mask)))
+    cors = inference.match_batch(feats, valid, tids, tscores, repre, config)
+    cors_rows = corresp.correspondences_from_banks(
+        points, feats[rows], valid[rows], tids[rows], tscores[rows],
+        fetched[0].to(config.compute_dtype), fetched[1], fetched[2],
+        top_k=config.top_k_buddies, approx_topk=config.approx_topk)
+    res["matching"] = max(diff(getattr(cors_rows, f.name), getattr(cors, f.name)[rows])
+                          for f in dataclasses.fields(cors))
+    # solve_batch's parts: RANSAC (DLT and the scorer), then on each crop's
+    # winning set (picked as solve_batch picks) the LO refits and LM.
+    flat = [a.flatten(0, 1) for a in (cors.coord_2d, cors.coord_3d, cors.valid, draws)]
+    cf, cc = (x.float()[:, None].expand(-1, n, 2).flatten(0, 1) for x in (cams.f, cams.c))
+    sets = slice(rows.start * n, rows.stop * n)
+    hyp = [pnp.ransac_pnp(*(a[s] for a in flat[:3]), cf[s], cc[s],
+                          num_hypotheses=config.pnp_select_iter or config.pnp_ransac_iter,
+                          inlier_thresh=config.pnp_inlier_thresh, refine_lm=False, lo_iters=0,
+                          draws=flat[3][s])
+           for s in (slice(None), sets)]
+    res["solve: RANSAC hypotheses"] = max(diff(getattr(hyp[1], k), getattr(hyp[0], k)[sets])
+                                          for k in ("R", "t", "quality"))
+    b_all = crops.shape[0]
+    best = torch.argmax(torch.where(hyp[0].success, hyp[0].quality, -1.0).reshape(b_all, n), -1)
+    ar = torch.arange(b_all, device=best.device)
+    win = [a.reshape(b_all, n, *a.shape[1:])[ar, best] for a in (hyp[0].R, hyp[0].t,
+                                                                 hyp[0].inliers, hyp[0].quality)]
+    pts = [cors.coord_2d[ar, best].float(), cors.coord_3d[ar, best].float(),
+           cors.valid[ar, best]]
+    cam = [cams.f.float(), cams.c.float()]
+    lo = [pnp.lo_refine(*(a[s] for a in win[:2] + pts + cam),
+                        inlier_thresh=config.pnp_inlier_thresh, iters=config.pnp_lo_iters,
+                        inliers=win[2][s], count=win[3][s]) for s in (slice(None), rows)]
+    res["solve: LO refits"] = max(diff(a, b[rows]) for a, b in zip(lo[1], lo[0]))
+    lm = [pnp.refine_pose_lm_guarded(*(a[s] for a in list(lo[0][:2]) + pts[:2]), lo[0][2][s],
+                                     *(a[s] for a in cam), iters=config.lm_iters)
+          for s in (slice(None), rows)]
+    res["solve: LM"] = max(diff(a, b[rows]) for a, b in zip(lm[1], lm[0]))
+    out = inference.solve_batch(fm, valid, tids, tscores, cors, cams, repre, config, draws=draws)
+    out_rows = inference.solve_batch(
+        fm[rows], valid[rows], tids[rows], tscores[rows], take(cors, rows), cams.index(rows),
+        shard, config, draws=draws[rows], fetched_banks=fetched)
+    res["solve: whole (winner refits, LM, score)"] = max(diff(getattr(out_rows, k), getattr(out, k)[rows])
+                       for k in ("R_m2c", "t_m2c", "quality"))
+    again = inference.pose_from_crops(model, crops, masks, cams, repre, config, draws=draws)
+    first = inference.pose_from_crops(model, crops, masks, cams, repre, config, draws=draws)
+    res["control: the single-device step twice"] = max(
+        diff(getattr(again, k), getattr(first, k)) for k in ("R_m2c", "t_m2c", "quality"))
+    return res
+
+
+def _mesh_rank(rank, world, root):
+    """One gloo rank of phase 11 (foundpose_torch.parallel.launch): the
+    (2, 2) and TP steps, the mesh engine and the mesh CLI on the shared
+    card; writes rank{rank}.pkl under `root`."""
+    import pickle
+
+    import torch
+
+    from foundpose_torch.engine import PoseEngine
+    from foundpose_torch.parallel import mesh as mesh_mod
+    from foundpose_torch.parallel import sharded_inference as shd
+    from foundpose_torch.pipeline import infer
+    from foundpose_torch.repre import load_repre
+    from foundpose_torch.synthetic import realistic_repre
+    from foundpose_torch.utils import config as config_util
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh_mod.compute_device("cuda")
+    torch.cuda.set_device(device)
+    with open(os.path.join(root, "mesh_inputs.pkl"), "rb") as f:
+        p = pickle.load(f)
+    res = {"device": str(device)}
+    with torch.no_grad():
+        for name, (shape, config_path) in MESH_STEPS.items():
+            model, repre, crops, masks, cams, config, draws = mesh_world(
+                torch, config_path, device, root)
+            mesh = mesh_mod.make_mesh(shape)
+            step = shd.make_object_mesh_step(mesh, config, repre)
+            params = shd.prepare_mesh_vit_params(mesh, model)
+            res[name] = mesh_requests(
+                torch, lambda: step(params, crops, masks, cams, draws=draws))
+            res[name]["coords"] = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+            if not name.startswith("TP"):
+                res[name]["stages"] = mesh_stage_diffs(torch, mesh, model, repre, crops, masks,
+                                                       cams, config, draws)
+            del model, repre, step, params
+
+        engine = PoseEngine(mesh_shape=(2, 2), device="cuda", **p["engine_kw"])
+        for obj_id, seed in ((1, 0), (2, 1)):
+            engine.register_object(obj_id, realistic_repre(seed, device))
+        image, boxes = serving_request()
+        split = (load_repre(os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])),
+                            device=device), *split_request(root, p["det_path"]))
+        reset_counts()
+        calls = engine_mesh_calls(engine, image, boxes, split)
+        launches = read_counts()
+        lat = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            engine.estimate(1, image, boxes, LMO_K)
+            lat.append(time.perf_counter() - t0)
+        res["engine"] = dict(rows=engine_rows(calls), launches=launches, latency_s=lat,
+                             median_s=float(np.median(lat)))
+        del engine
+
+    opts = config_util.load_opts(infer.InferOpts, p["cli_args"] + ["--set", "mesh_shape=[2, 2]"])
+    reset_counts()
+    with CapturedRuns() as cap:
+        t0 = time.perf_counter()
+        counts = infer.infer(opts)
+        wall = time.perf_counter() - t0
+    res["cli"] = dict(counts=counts, wall_s=wall, launches=read_counts(),
+                      finalized=sorted(cap.results), rows=cli_rows(cap))
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def cli_rows(cap):
+    """Per instance of the captured runs: ids, decisions and poses."""
+    return [dict(key=(p.scene_id, p.im_id, p.inst_id),
+                 **{k: np.asarray(r[k]) for k in ("template_ids", "best_template", "success",
+                                                  "R_m2c", "t_m2c")})
+            for res in cap.results.values() for p, r in res]
+
+
+def phase_mesh(torch, params, vit_cfg, device):
+    """The multi-device layer on the card (see the module docstring)."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from foundpose_torch.engine import PoseEngine
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_torch.parallel import launch
+    from foundpose_torch.parallel import mesh as mesh_mod
+    from foundpose_torch.parallel import sharded_inference as shd
+    from foundpose_torch.pipeline import infer, inference
+    from foundpose_torch.repre import load_repre, save_repre
+    from foundpose_torch.synthetic import realistic_repre
+    from foundpose_torch.utils import config as config_util
+
+    res = {"label": MESH_LABEL}
+    with tempfile.TemporaryDirectory(prefix="foundpose_mesh_") as root:
+        # The split (object 1, 2 images, 16 crops), its crop-world
+        # representation, the single-device CLI's run.
+        t0 = time.perf_counter()
+        det_path = write_split(torch, root, n_images=2)
+        torch.save(state_dict_from_jax_params(params, vit_cfg), os.path.join(root, "vits14_reg.pth"))
+        cli_args = [
+            "--opts-path", LMO_CONFIG, "--set", f"bop_root={root}/bop",
+            "--set", f"repre_dir={root}/repre", "--set", f"detections_path={det_path}",
+            "--set", f"weights_path={root}/vits14_reg.pth",
+            "--set", f"object_lids=[{CLI_LIDS[0]}]", "--set", "dataset_crop_size=[640, 480]",
+        ]
+        opts = config_util.load_opts(infer.InferOpts, cli_args + ["--set", f"output_dir={root}/out"])
+        model, config = infer.load_model(opts, device)
+        pend = object_crops(opts, CLI_LIDS[0], [(1, 0), (1, 1)])
+        check(len(pend) == 16, f"{len(pend)} crops in the mesh split")
+        save_repre(crop_world_repre(torch, model, config, pend, 0, device),
+                   os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])))
+        with open(os.path.join(root, "crops.pkl"), "wb") as f:
+            pickle.dump(infer.stack_batch(pend, "cpu"), f)
+        del model, pend
+        with CapturedRuns() as cap:
+            infer.infer(opts)
+        cli_ref = cli_rows(cap)
+        cli_args += ["--set", f"output_dir={root}/out_mesh"]
+
+        # Single-device references of the steps and the engine.
+        refs = {}
+        with torch.no_grad():
+            for name, (_, config_path) in MESH_STEPS.items():
+                model, repre, crops, masks, cams, config, draws = mesh_world(
+                    torch, config_path, device, root)
+                refs[name] = outputs_np(inference.pose_from_crops(
+                    model, crops, masks, cams, repre, config, draws=draws))
+            engine_kw, _, _ = serving_engine_kw(torch, params)
+            engine = PoseEngine(**engine_kw, device=device)
+            for obj_id, seed in ((1, 0), (2, 1)):
+                engine.register_object(obj_id, realistic_repre(seed, device))
+            image, boxes = serving_request()
+            split = (load_repre(os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])),
+                                device=device), *split_request(root, det_path))
+            engine_ref = engine_rows(engine_mesh_calls(engine, image, boxes, split))
+            del engine, split
+
+            # (a) NCCL, world 1, mesh (1, 1), at lmo.json.
+            name = "step (2, 2) lmo.json"
+            model, repre, crops, masks, cams, config, draws = mesh_world(
+                torch, MESH_STEPS[name][1], device, root)
+            dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store", rank=0,
+                                    world_size=1)
+            try:
+                mesh = mesh_mod.make_mesh((1, 1))
+                step = shd.make_object_mesh_step(mesh, config, repre)
+                nccl = mesh_requests(torch, lambda: step(model, crops, masks, cams, draws=draws))
+                nccl["backend"] = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            del model, repre, step
+        nccl["vs_single"] = compare_poses(nccl.pop("outputs"), refs[name], all_crops=True)
+        res["nccl (1, 1) lmo.json"] = nccl
+        res["setup_s"] = time.perf_counter() - t0
+
+        # (b) 4 gloo ranks sharing the card.
+        with open(os.path.join(root, "mesh_inputs.pkl"), "wb") as f:
+            pickle.dump(dict(engine_kw=engine_kw, cli_args=cli_args, det_path=det_path), f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launch.run(_mesh_rank, MESH_WORLD, root)
+        res["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        with open(os.path.join(root, "out", "lmo", "v1", str(CLI_LIDS[0]),
+                               "estimated-poses.json")) as f:
+            single_records = json.load(f)
+        with open(os.path.join(root, "out_mesh", "lmo", "v1", str(CLI_LIDS[0]),
+                               "estimated-poses.json")) as f:
+            mesh_records = json.load(f)
+
+    r = res["nccl (1, 1) lmo.json"]
+    log(11, f"(a) NCCL world 1, mesh (1, 1), lmo.json, 16 crops: vs the single-device step "
+            f"{r['vs_single']}; launches {r['launches']}; {MESH_TIMED} requests ms median "
+            f"{r['median_s'] * 1e3:.2f} (min {min(r['latency_s']) * 1e3:.2f})")
+    check(r["vs_single"]["ok"], "the NCCL (1, 1) step differs from the single-device step")
+    check(all(r["launches"][k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+          f"NCCL step launches {r['launches']}")
+    for name in MESH_STEPS:
+        per_rank = [rk[name] for rk in ranks]
+        for rk in per_rank:
+            rk["vs_single"] = compare_poses(rk.pop("outputs"), refs[name],
+                                            all_crops=name.startswith("step"))
+        tp = name.startswith("TP")
+        need = ("attention", "ransac_score") if tp else ("vit_block", "buddies", "ransac_score")
+        res[name] = per_rank
+        log(11, f"(b) {name}, 16 crops, per rank [{MESH_LABEL}]: "
+                + "; ".join(f"rank {i} {rk['coords']}: launches {rk['launches']}, median "
+                            f"{rk['median_s'] * 1e3:.2f} ms" for i, rk in enumerate(per_rank))
+                + f"; vs single device {per_rank[0]['vs_single']}")
+        if not tp:
+            bank = {i: rk["stages"]["bank fetch"] for i, rk in enumerate(per_rank)}
+            log(11, f"(b) {name}, each stage on a rank's rows from the single-device chain's "
+                    f"inputs against the single-device stage, largest difference: "
+                    + "; ".join(f"rank {i} {rk['stages']}" for i, rk in enumerate(per_rank)))
+            check(all(v == 0.0 for v in bank.values()), f"fetched banks not bit-equal: {bank}")
+        for i, rk in enumerate(per_rank):
+            check(rk["vs_single"]["ok"], f"{name}: rank {i} differs from the single-device "
+                                         f"step: {rk['vs_single']}")
+            check(all(rk["launches"][k] > 0 for k in need), f"{name}: rank {i} launched "
+                                                            f"{rk['launches']}")
+            check(rk["launches"]["vit_block"] == (0 if tp else vit_cfg.layer + 1)
+                  and rk["launches"]["attention"] == (vit_cfg.layer + 1 if tp else 0),
+                  f"{name}: rank {i} ViT launches {rk['launches']}")
+    eng = [rk["engine"] for rk in ranks]
+    diffs = []
+    for i, e in enumerate(eng):
+        check(len(e["rows"]) == len(engine_ref), "engine row count")
+        for g, rf in zip(e["rows"], engine_ref):
+            check(all(bool(g[k] == rf[k]) for k in ("success", "best_template", "quality")),
+                  f"mesh engine rank {i} decisions differ from the single-device engine")
+            if g["success"]:
+                diffs.append((float(np.abs(g["R_m2c"] - rf["R_m2c"]).max()),
+                              float(np.abs(g["t_m2c"] - rf["t_m2c"]).max())))
+    d_r = max([a for a, _ in diffs], default=0.0)
+    d_t = max([b for _, b in diffs], default=0.0)
+    solved = sum(bool(r["success"]) for r in engine_ref)
+    res["engine"] = dict(ranks=[{k: v for k, v in e.items() if k != "rows"} for e in eng],
+                         solved=solved, rows=len(engine_ref), max_abs_R=d_r, max_abs_t=d_t)
+    log(11, f"(b) PoseEngine(mesh_shape=(2, 2)) lmo_exact.json, estimate() of 16 boxes, "
+            f"estimate_mixed() over 2 objects and estimate() of the split's object on its "
+            f"image 0: decisions equal the single-device engine's on every rank; {solved} of "
+            f"{len(engine_ref)} rows solved, |R| {d_r:.2e}, |t| {d_t:.2e} over them on every "
+            f"rank; per rank "
+            f"[{MESH_LABEL}]: " + "; ".join(
+                f"launches {e['launches']}, estimate() median {e['median_s'] * 1e3:.2f} ms"
+                for e in eng))
+    check(solved > 0, "no mesh engine row solved: its poses went unchecked")
+    check(d_r <= REFINE_WORLD_R_ATOL and d_t <= REFINE_WORLD_T_ATOL, "mesh engine poses differ")
+    check(all(e["launches"]["attention"] == 3 * (vit_cfg.layer + 1)
+              and e["launches"]["vit_block"] == 0 for e in eng),
+          f"mesh engine launches {[e['launches'] for e in eng]}")
+    cli = [rk["cli"] for rk in ranks]
+    rows = cli[0]["rows"]
+    check(all(c["finalized"] == [] for c in cli[1:]) and cli[0]["finalized"] == [CLI_LIDS[0]],
+          f"ranks that finalized: {[c['finalized'] for c in cli]}")
+    check([x["key"] for x in rows] == [x["key"] for x in cli_ref], "mesh CLI instances")
+    cmp = compare_poses(*({k: np.stack([x[k] for x in xs]) for k in rows[0] if k != "key"}
+                          for xs in (rows, cli_ref)), all_crops=False)
+    res["cli"] = dict(ranks=[{k: v for k, v in c.items() if k != "rows"} for c in cli],
+                      vs_single=cmp, records=len(mesh_records),
+                      single_records=len(single_records))
+    log(11, f"(b) infer() at mesh_shape=[2, 2], lmo.json, 16 crops: vs the single-device CLI "
+            f"{cmp}; estimated-poses.json {len(mesh_records)} records (single device "
+            f"{len(single_records)}), written by rank 0 only; walls s [{MESH_LABEL}] "
+            + ", ".join(f"{c['wall_s']:.2f}" for c in cli) + f"; rank 0 launches "
+            f"{cli[0]['launches']}")
+    check(cmp["ok"] and cmp["both_succeeded"] > 0, "the mesh CLI differs from the single-device CLI")
+    check(len(mesh_records) == len(single_records) > 0, "estimated-poses.json records differ")
+    check(all(c["launches"][k] > 0 for c in cli for k in ("vit_block", "buddies", "ransac_score")),
+          "mesh CLI kernels not launched")
+    log(11, f"setup {res['setup_s']:.1f} s, 4 ranks {res['ranks_wall_s']:.1f} s (spawn, loads, "
+            f"all of (b))")
+    return res
+
+
 def main():
     import torch
 
@@ -1999,6 +2515,7 @@ def main():
         report["cli"] = phase_cli(torch, params, vit_cfg, device,
                                   report["main_path"]["median_latency_s"])
     report["builder"] = phase_builder(torch, params, vit_cfg, device)
+    report["mesh"] = phase_mesh(torch, params, vit_cfg, device)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2014,9 +2531,17 @@ def main():
         "attention": report["builder"]["lmo"]["launches"]["attention"],
         "micro_mm": report["probe"]["launches"]["mm_int8"],
     }
+    mesh = report["mesh"]
     by_path = {"lmo.json": report["main_path"]["launches"],
                "lmo_exact.json serving": report["serving"]["launches"],
-               "gen_repre lmo.json": report["builder"]["lmo"]["launches"]}
+               "gen_repre lmo.json": report["builder"]["lmo"]["launches"],
+               "mesh (1, 1) NCCL lmo.json": mesh["nccl (1, 1) lmo.json"]["launches"],
+               "mesh (2, 2) lmo.json, rank 0": mesh["step (2, 2) lmo.json"][0]["launches"],
+               "mesh TP (1, 2, 2) lmo_exact.json, rank 0":
+                   mesh["TP step (1, 2, 2) lmo_exact.json"][0]["launches"],
+               "PoseEngine mesh (2, 2) lmo_exact.json, rank 0":
+                   mesh["engine"]["ranks"][0]["launches"],
+               "infer mesh [2, 2] lmo.json, rank 0": mesh["cli"]["ranks"][0]["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -10,13 +10,17 @@ by repeating the last detection, and fetches each chunk's results as one
 packed [B, 16] array. `estimate_mixed()` serves detections of different
 objects through the stacked multi-object step.
 
-Not ported: `mesh_shape` (the multi-device layer comes last) and the JAX
+With `mesh_shape` the engine serves from a device mesh
+(parallel/sharded_inference): every rank of an initialized process group
+of prod(mesh_shape) ranks builds the engine and calls it with the same
+arguments, and every rank gets the same results. Not ported: the JAX
 engine's single-program fusion and jit caches, which eager PyTorch has no
 use for. RANSAC draws come from a torch.Generator seeded from `seed`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +31,8 @@ from foundpose_torch.cameras import build_crop_cameras
 from foundpose_torch.models import dinov2
 from foundpose_torch.models.weights import load_or_init
 from foundpose_torch.ops.warp import make_single_image_warp
+from foundpose_torch.parallel import mesh as mesh_mod
+from foundpose_torch.parallel import sharded_inference
 from foundpose_torch.pipeline import inference
 from foundpose_torch.pipeline.multi_object import pose_from_crops_multi
 from foundpose_torch.repre import ObjectRepre, stack_repres
@@ -34,6 +40,11 @@ from foundpose_torch.structs import PinholeCamera
 
 
 class PoseEngine:
+    # Bound on cached per-object mesh steps: each pins its padded bank shard
+    # in device memory, so serving that rotates through many objects would
+    # otherwise grow without bound.
+    max_cached_mesh_steps = 8
+
     def __init__(
         self,
         extractor_name: str = "dinov2_version=vits14-reg_stride=14_facet=token_layer=9_norm=1",
@@ -49,11 +60,21 @@ class PoseEngine:
         {"use_fused_block": True, "approx_gelu": True,
         "softmax_stabilizer": "capped"} with a bf16 config for the fused
         block. Without `weights_path` the ViT gets random weights from
-        `seed` (bench_weights.init_params)."""
+        `seed` (bench_weights.init_params).
+
+        mesh_shape: (data, bank) shards crops over `data` and every
+        object's template bank over `bank`; (data, bank, model) also runs
+        the ViT tensor-parallel (parallel/tp_vit). The data axis must
+        divide batch_size, and a process group of prod(mesh_shape) ranks
+        must be initialized (e.g. under torchrun); "cuda" then means this
+        rank's card (parallel/mesh.compute_device)."""
+        self._mesh = None
         if mesh_shape:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP.md Queue 1 item 5)"
-            )
+            if batch_size % mesh_shape[0]:
+                raise ValueError(f"the data axis ({mesh_shape[0]}) of mesh_shape={mesh_shape} "
+                                 f"must divide batch_size={batch_size}")
+            self._mesh = mesh_mod.make_mesh(mesh_shape)
+            device = mesh_mod.compute_device(device)
         self.device = torch.device(device)
         self.vit_cfg = dinov2.parse_model_name(extractor_name)
         if extractor_overrides:
@@ -64,16 +85,43 @@ class PoseEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._repres: Dict[int, ObjectRepre] = {}
         self._multi_cache = None
+        self._mesh_params = None
+        self._mesh_steps: "collections.OrderedDict[int, Any]" = collections.OrderedDict()
         self._warp = make_single_image_warp(self.config.crop_size)
         self._counter = 0
 
     def register_object(self, obj_id: int, repre: ObjectRepre) -> None:
         self._repres[obj_id] = repre.to(self.device).cast_banks(self.config.compute_dtype)
         self._multi_cache = None
+        self._mesh_steps.pop(obj_id, None)
 
     def unregister_object(self, obj_id: int) -> None:
+        """Drops an object and its cached mesh step (and the bank shard it
+        holds)."""
         self._repres.pop(obj_id, None)
         self._multi_cache = None
+        self._mesh_steps.pop(obj_id, None)
+
+    def _get_mesh_params(self):
+        """The ViT as the mesh steps take it (this rank's TP shard on a
+        `model` axis), prepared once and shared by every object's step."""
+        if self._mesh_params is None:
+            self._mesh_params = sharded_inference.prepare_mesh_vit_params(self._mesh, self.model)
+        return self._mesh_params
+
+    def _mesh_object_step(self, obj_id: int):
+        """The mesh step of one object, built at first use and kept in an
+        LRU cache of max_cached_mesh_steps entries (at least the current)."""
+        steps = self._mesh_steps
+        if obj_id in steps:
+            steps.move_to_end(obj_id)
+        else:
+            steps[obj_id] = sharded_inference.make_object_mesh_step(
+                self._mesh, self.config, self._repres[obj_id]
+            )
+            while len(steps) > max(1, self.max_cached_mesh_steps):
+                steps.popitem(last=False)
+        return steps[obj_id]
 
     @property
     def object_ids(self) -> List[int]:
@@ -199,19 +247,32 @@ class PoseEngine:
         repre = self._repres[obj_id]
         masks = list(masks) if masks is not None else [None] * len(boxes_xyxy)
 
-        def step(crops, crop_masks, cams, chunk, pad, draws):
-            return inference.pose_from_crops(
-                self.model, crops, crop_masks, cams, repre, self.config,
-                generator=self.generator, draws=draws,
-            )
+        if self._mesh is not None:
+            mesh_step, params = self._mesh_object_step(obj_id), self._get_mesh_params()
+
+            def step(crops, crop_masks, cams, chunk, pad, draws):
+                return mesh_step(params, crops, crop_masks, cams, generator=self.generator,
+                                 draws=draws)
+        else:
+            def step(crops, crop_masks, cams, chunk, pad, draws):
+                return inference.pose_from_crops(
+                    self.model, crops, crop_masks, cams, repre, self.config,
+                    generator=self.generator, draws=draws,
+                )
 
         return self._serve(image, boxes_xyxy, masks, K, step)
 
     def _multi(self):
-        """(object order, stacked repre), rebuilt after (un)registration."""
+        """(object order, stacked repre, mesh step or None), rebuilt after
+        (un)registration; on a mesh the repre is this rank's bank shard."""
         if self._multi_cache is None:
             order = self.object_ids
-            self._multi_cache = (order, stack_repres([self._repres[o] for o in order]))
+            multi, step = stack_repres([self._repres[o] for o in order]), None
+            if self._mesh is not None:
+                step, multi = sharded_inference.make_multi_object_mesh_step(
+                    self._mesh, self.config, multi
+                )
+            self._multi_cache = (order, multi, step)
         return self._multi_cache
 
     @torch.no_grad()
@@ -223,7 +284,7 @@ class PoseEngine:
         with "obj_id", "box_xyxy" and optional "mask"."""
         if len(detections) == 0:
             return []
-        order, multi = self._multi()
+        order, multi, mesh_step = self._multi()
         obj_to_idx = {o: i for i, o in enumerate(order)}
 
         def step(crops, crop_masks, cams, chunk, pad, draws):
@@ -231,6 +292,9 @@ class PoseEngine:
                 [obj_to_idx[detections[i]["obj_id"]] for i in chunk] + [0] * pad,
                 device=self.device,
             )
+            if mesh_step is not None:
+                return mesh_step(self._get_mesh_params(), crops, crop_masks, cams, obj_idx,
+                                 generator=self.generator, draws=draws)
             return pose_from_crops_multi(
                 self.model, crops, crop_masks, cams, obj_idx, multi, self.config,
                 generator=self.generator, draws=draws,

@@ -346,13 +346,28 @@ def extract_facet(model: DinoV2, images_nhwc: torch.Tensor) -> Dict[str, torch.T
         qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"])
         b, t, _ = qkv.shape
         qkv = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim)
-        sel = qkv[:, :, {"query": 0, "key": 1, "value": 2}[cfg.facet]]
-        feats = sel.transpose(2, 3).reshape(b, t, cfg.embed_dim)
+        feats = head_minor(qkv[:, :, {"query": 0, "key": 1, "value": 2}[cfg.facet]])
     elif cfg.facet == "attn":
         raise ValueError("facet='attn' is not a descriptor facet")
     else:
         raise ValueError(f"unsupported facet: {cfg.facet}")
 
+    return facet_outputs(model, feats, (gh, gw))
+
+
+def head_minor(sel: torch.Tensor) -> torch.Tensor:
+    """[B, T, nh, hd] query/key/value heads -> [B, T, nh * hd] flattened
+    head-minor, as the reference's permute(0, 2, 3, 1).flatten."""
+    b, t, nh, hd = sel.shape
+    return sel.transpose(2, 3).reshape(b, t, nh * hd)
+
+
+def facet_outputs(
+    model: DinoV2, feats: torch.Tensor, grid_hw: Tuple[int, int]
+) -> Dict[str, torch.Tensor]:
+    """Facet tokens [B, 1+R+N, D] -> {"cls_tokens", "feature_maps"}:
+    register tokens dropped, the final LayerNorm applied if cfg.apply_norm."""
+    cfg = model.cfg
     cls_tokens = feats[:, 0]
     patch_tokens = feats[:, 1 + cfg.num_register_tokens :]
     if cfg.apply_norm:
@@ -364,7 +379,7 @@ def extract_facet(model: DinoV2, images_nhwc: torch.Tensor) -> Dict[str, torch.T
         cls_tokens = tokens[:, 0]
         patch_tokens = tokens[:, 1:]
     b = patch_tokens.shape[0]
-    fmap = patch_tokens.reshape(b, gh, gw, patch_tokens.shape[-1])
+    fmap = patch_tokens.reshape(b, *grid_hw, patch_tokens.shape[-1])
     return {"cls_tokens": cls_tokens, "feature_maps": fmap}
 
 

@@ -106,10 +106,12 @@ def lift_points_to_3d(
 
 
 def subsample_points(
-    valid: torch.Tensor, max_count: int, generator: Optional[torch.Generator] = None
+    valid: torch.Tensor, max_count: int, generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Randomly keeps at most `max_count` valid points per row of [..., Q]."""
-    scores = torch.rand(
+    """Randomly keeps at most `max_count` valid points per row of [..., Q],
+    ranked by uniform `noise` [..., Q] (else drawn from `generator`)."""
+    scores = noise if noise is not None else torch.rand(
         valid.shape, generator=generator, device=valid.device, dtype=torch.float32
     )
     scores = torch.where(valid, scores, torch.full_like(scores, -1.0))

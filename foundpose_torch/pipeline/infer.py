@@ -19,14 +19,22 @@ the online step per batch:
 Instances from many test images batch together, so the device sees a steady
 stream of fixed-size batches whatever the detection count of an image. The
 step runs on `InferOpts.device` ("cuda" unless the caller asks for "cpu").
-Not ported: `mesh_shape` (the multi-device layer comes later; it raises) and
-the JAX package's persistent compile cache, which eager PyTorch has no use
-for.
+
+With `mesh_shape` the step runs on a device mesh (parallel/sharded_inference),
+one process per rank:
+
+    torchrun --nproc-per-node N -m foundpose_torch.pipeline.infer \
+        --opts-path configs/infer/lmo.json ... --set mesh_shape=[a,b]
+
+Every rank reads the same images and builds the same batches; global rank 0
+alone writes the result files and logs. Not ported: the JAX package's
+persistent compile cache, which eager PyTorch has no use for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from types import SimpleNamespace
@@ -34,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from foundpose_torch.cameras import build_crop_cameras
 from foundpose_torch.data import bop, detections as det_mod
@@ -42,6 +51,8 @@ from foundpose_torch.models import dinov2
 from foundpose_torch.models import weights as weights_mod
 from foundpose_torch.ops.warp import make_single_image_warp
 from foundpose_torch.parallel import host_shard
+from foundpose_torch.parallel import mesh as mesh_mod
+from foundpose_torch.parallel import sharded_inference
 from foundpose_torch.pipeline import inference
 from foundpose_torch.pipeline import multi_object as mo
 from foundpose_torch.repre import ObjectRepre, load_repre, stack_repres
@@ -124,11 +135,13 @@ class InferOpts:
     # Host-level dataset sharding (parallel/host_shard.py): this process
     # handles every shard_count-th (scene, image) key and writes
     # shard-suffixed artifacts, which prepare_bop_submission merges.
-    # shard_count=0 resolves from torch.distributed.
+    # shard_count=0 resolves from torch.distributed (to (0, 1) under a
+    # mesh: see shard_of).
     shard_index: int = 0
     shard_count: int = 1
 
-    # The multi-device layer is not ported: anything but None raises.
+    # Device mesh (data, bank) or (data, bank, model) of the initialized
+    # process group (parallel/mesh.py); None runs on one device.
     mesh_shape: Optional[Tuple[int, ...]] = None
 
     # `vit_overrides` patches fields of the parsed DinoV2Config (e.g. a tiny
@@ -283,22 +296,30 @@ def dispatch_batch(
     device,
     draws_fn: Optional[DrawsFn] = None,
     obj_to_idx: Optional[Dict[int, int]] = None,
+    mesh_step=None,
 ) -> inference.PoseOutputs:
     """Issues the online step on one padded batch without waiting for the
     device. Batch `seq` draws its RANSAC hypotheses from
     torch.Generator(device).manual_seed(seq) (the JAX package's
     PRNGKey(seq)), or takes them from draws_fn(seq). With obj_to_idx,
     `repre` is the stacked multi-object repre and crop i uses object
-    obj_to_idx[obj_id of crop i]."""
+    obj_to_idx[obj_id of crop i]. With `mesh_step` (parallel/
+    sharded_inference), the batch goes through it and `model` is the ViT
+    as the mesh step takes it; `repre` is then unused."""
     dev = torch.device(device)
     crops, masks, cams = stack_batch(padded, dev)
     gen = torch.Generator(device=dev).manual_seed(seq)
     draws = None if draws_fn is None else to_device(draws_fn(seq), dev)
+    obj_idx = None
+    if obj_to_idx is not None:
+        obj_idx = to_device(np.asarray([obj_to_idx[p.obj_id] for p in padded], np.int64), dev)
+    if mesh_step is not None:
+        args = () if obj_idx is None else (obj_idx,)
+        return mesh_step(model, crops, masks, cams, *args, generator=gen, draws=draws)
     if obj_to_idx is None:
         return inference.pose_from_crops(
             model, crops, masks, cams, repre, config, generator=gen, draws=draws
         )
-    obj_idx = to_device(np.asarray([obj_to_idx[p.obj_id] for p in padded], np.int64), dev)
     return mo.pose_from_crops_multi(
         model, crops, masks, cams, obj_idx, repre, config, generator=gen, draws=draws
     )
@@ -557,7 +578,7 @@ def finalize_object_results(
     utils/eval_util.py:400-590)."""
     # Run-level files carry the shard suffix (concurrent shards would
     # clobber them); per-instance tiles are keyed by (scene, image, inst).
-    si, sc = host_shard.shard_of(opts)
+    si, sc = shard_of(opts)
     sname = lambda base: host_shard.sharded_name(base, si, sc)
 
     vis_images = []
@@ -662,15 +683,51 @@ def finalize_object_results(
     logger.info(f"Summary for object {lid}: {evaluator.summary()}")
 
 
+def shard_of(opts: InferOpts) -> Tuple[int, int]:
+    """This process's dataset shard (parallel/host_shard.resolve_shard).
+    Under a mesh the whole process group is one mesh, so shard_count=0
+    resolves to (0, 1), as the JAX package's single-process mesh does;
+    explicit values compose with the mesh, one launch per shard."""
+    if opts.mesh_shape and opts.shard_count == 0:
+        if opts.shard_index:
+            raise ValueError(f"shard_index={opts.shard_index} with shard_count=0 (auto): pass "
+                             "an explicit shard_count")
+        return 0, 1
+    return host_shard.shard_of(opts)
+
+
+def _build_mesh(opts: InferOpts):
+    """The device mesh of opts.mesh_shape over the initialized process
+    group; its data axis must divide batch_size."""
+    data = opts.mesh_shape[0]
+    if opts.batch_size % data:
+        raise ValueError(f"the data axis ({data}) of mesh_shape={opts.mesh_shape} must "
+                         f"divide batch_size={opts.batch_size}")
+    mesh = mesh_mod.make_mesh(opts.mesh_shape)
+    if dist.get_rank() != 0:
+        logger.setLevel(logging.WARNING)  # rank 0 alone logs
+    logger.info(f"Device mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+                f"{dist.get_world_size()} ranks ({dist.get_backend()})")
+    return mesh
+
+
+def _setup(opts: InferOpts):
+    """(mesh or None, this process's device, the ViT as the step takes it,
+    the step's configuration, whether this process writes the results)."""
+    mesh = _build_mesh(opts) if opts.mesh_shape else None
+    device = mesh_mod.compute_device(opts.device) if mesh else torch.device(opts.device)
+    model, config = load_model(opts, device)
+    if mesh is None:
+        return None, device, model, config, True
+    params = sharded_inference.prepare_mesh_vit_params(mesh, model)
+    return mesh, device, params, config, dist.get_rank() == 0
+
+
 def load_model(opts: InferOpts, device) -> Tuple[dinov2.DinoV2, inference.InferenceConfig]:
     """The ViT on `device` and the step's configuration, both resolved from
     the options by pipeline/inference (one mapping from options to
     configuration). Without weights_path the ViT gets bench_weights' random
     weights from seed 0, as PoseEngine."""
-    if opts.mesh_shape:
-        raise NotImplementedError(
-            "multi-device inference is not ported yet (ROADMAP.md Queue 1 item 5)"
-        )
     o = dataclasses.asdict(opts)
     vit_cfg = inference.vit_config_from_opts(o)
     if not opts.weights_path:
@@ -742,9 +799,9 @@ def infer(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -> Dict[int, i
     processed} (estimates written may be fewer: only successful solves are
     serialized, reference: scripts/infer.py:813-816). draws_fn(seq), when
     given, supplies batch seq's RANSAC draws [B, top_n, H, 6] (e.g. the JAX
-    package's, to compare the two)."""
-    device = torch.device(opts.device)
-    model, config = load_model(opts, device)
+    package's, to compare the two). Under a mesh every rank of the process
+    group calls it with the same options."""
+    mesh, device, model, config, writer = _setup(opts)
     warp_batch = make_single_image_warp(opts.crop_size)
 
     all_dets = det_mod.load_detections(opts.detections_path) if opts.use_detections else {}
@@ -753,7 +810,7 @@ def infer(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -> Dict[int, i
 
     # Host-level dataset sharding: this process handles image_keys[si::sc]
     # and its resume/output files carry the shard suffix.
-    si, sc = host_shard.shard_of(opts)
+    si, sc = shard_of(opts)
     if sc > 1:
         logger.info(f"Dataset shard {si}/{sc} (host-level round-robin).")
 
@@ -772,10 +829,13 @@ def infer(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -> Dict[int, i
             repre = repre.cast_banks(config.compute_dtype)
         evaluator = EvaluatorPose([lid])
         model_mesh, pts, sym_r, sym_t, diameter = _object_meta(opts, models_info, lid)
+        mesh_step = (None if mesh is None
+                     else sharded_inference.make_object_mesh_step(mesh, config, repre))
 
         runner = BatchRunner(
             opts.batch_size,
-            lambda s, padded: dispatch_batch(model, repre, config, padded, s, device, draws_fn),
+            lambda s, padded: dispatch_batch(model, repre, config, padded, s, device, draws_fn,
+                                             mesh_step=mesh_step),
         )
         # (scene, image) pairs: from detections, or every test image when
         # use_detections=False. The same ordered list on every host, so the
@@ -806,12 +866,13 @@ def infer(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -> Dict[int, i
             # make resume=True treat a failed object as completed). Sharded:
             # an empty shard is a legitimate outcome, marked done by the
             # host_shard sentinel.
-            if sc > 1 and opts.save_estimates:
+            if sc > 1 and opts.save_estimates and writer:
                 host_shard.write_empty_shard_sentinel(os.path.dirname(out_json), si, sc)
             continue
-        finalize_object_results(
-            opts, lid, results, repre, model_mesh, evaluator, pts, sym_r, sym_t, diameter,
-        )
+        if writer:
+            finalize_object_results(
+                opts, lid, results, repre, model_mesh, evaluator, pts, sym_r, sym_t, diameter,
+            )
     return counts
 
 
@@ -819,8 +880,7 @@ def infer_multi_object(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -
     """Mixed-object inference: all objects share batches through one stacked
     multi-object repre (pipeline/multi_object.py). One pass over the test
     images instead of the reference's per-object loop."""
-    device = torch.device(opts.device)
-    model, config = load_model(opts, device)
+    mesh, device, model, config, writer = _setup(opts)
     warp_batch = make_single_image_warp(opts.crop_size)
 
     all_dets = det_mod.load_detections(opts.detections_path) if opts.use_detections else {}
@@ -843,15 +903,18 @@ def infer_multi_object(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -
             for s in bop.list_scenes(opts.bop_root, opts.object_dataset)
             for i in bop.list_images(opts.bop_root, opts.object_dataset, s)
         ]
-    si, sc = host_shard.shard_of(opts)
+    si, sc = shard_of(opts)
     if sc > 1:
         logger.info(f"Dataset shard {si}/{sc} (host-level round-robin).")
     image_keys = host_shard.shard_keys(image_keys, si, sc)
+    mesh_step = None
+    if mesh is not None:
+        mesh_step, _ = sharded_inference.make_multi_object_mesh_step(mesh, config, multi_repre)
 
     runner = BatchRunner(
         opts.batch_size,
         lambda s, padded: dispatch_batch(model, multi_repre, config, padded, s, device,
-                                         draws_fn, obj_to_idx),
+                                         draws_fn, obj_to_idx, mesh_step),
     )
     for (scene_id, im_id), sample in _iter_samples_prefetched(image_keys, _sample_loader(opts)):
         for lid in object_lids:
@@ -877,6 +940,8 @@ def infer_multi_object(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -
     for lid in object_lids:
         # As the single-object entry point: an object with no instances writes
         # nothing unsharded, and its shard sentinel when sharded.
+        if not writer:
+            continue
         if not results_by_lid[lid]:
             if sc > 1 and opts.save_estimates:
                 host_shard.write_empty_shard_sentinel(
@@ -894,10 +959,17 @@ def infer_multi_object(opts: InferOpts, *, draws_fn: Optional[DrawsFn] = None) -
 
 def main() -> None:
     opts = config_util.load_opts(InferOpts)
-    if opts.multi_object:
-        infer_multi_object(opts)
-    else:
-        infer(opts)
+    own_group = bool(opts.mesh_shape) and not dist.is_initialized()
+    if own_group:
+        mesh_mod.init_from_env(opts.device)
+    try:
+        if opts.multi_object:
+            infer_multi_object(opts)
+        else:
+            infer(opts)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

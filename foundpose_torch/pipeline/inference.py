@@ -210,17 +210,19 @@ def match_batch(feats_b, valid_b, template_ids_b, template_scores_b, repre, conf
 def full_budget_winner(
     r_best, t_best, inliers_best, quality_best, c2d, c3d, cvalid, cam_f, cam_c,
     config: InferenceConfig, generator: Optional[torch.Generator] = None,
+    draws: Optional[torch.Tensor] = None,
 ):
     """Second phase of the two-phase solve (no-op when single-pass): RANSAC
     at the full budget on each crop's winning set, kept where it does not
-    lose inliers. Its draws come from `generator`."""
+    lose inliers. Its draws [B, H, 6] are `draws`, else from `generator`."""
     if not config.pnp_select_iter:
         return r_best, t_best, inliers_best, quality_best
     full = pnp_mod.ransac_pnp(
         c2d, c3d, cvalid, cam_f, cam_c,
         num_hypotheses=config.pnp_ransac_iter,
         inlier_thresh=config.pnp_inlier_thresh,
-        refine_lm=False, lm_iters=config.lm_iters, lo_iters=0, generator=generator,
+        refine_lm=False, lm_iters=config.lm_iters, lo_iters=0, draws=draws,
+        generator=generator,
     )
     better = full.quality >= quality_best
     return (
@@ -289,6 +291,8 @@ def solve_batch(
     draws: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     obj_idx: Optional[torch.Tensor] = None,
+    full_draws: Optional[torch.Tensor] = None,
+    fetched_banks: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> PoseOutputs:
     """Stage C: RANSAC-PnP over every (crop, template) set in one batch,
     best-by-inlier-count selection, winner refinement, world frame.
@@ -296,6 +300,10 @@ def solve_batch(
     feature_maps [B, Hf, Wf, D_raw] and the repre's projector and banks
     feed featuremetric refinement only. With obj_idx [B], `repre` is a
     stacked multi-object repre and crop i uses object obj_idx[i].
+    full_draws [B, H, 6]: the two-phase second pass's draws (else from
+    `generator`). fetched_banks: the retrieved templates' (feats, vertices,
+    mask) [B, T', F, ...] when the repre holds one bank shard only (the
+    multi-device step); the winner's bank is then taken from them.
 
     Selection compares inlier counts where RANSAC succeeded (-1 elsewhere)
     and takes the first maximum. The two-phase second pass keeps the full
@@ -331,7 +339,7 @@ def solve_batch(
     cvalid, c2d_ids = cors_b.valid[ar, best], cors_b.coord_2d_ids[ar, best]
     r_best, t_best, inliers_best, quality_best = full_budget_winner(
         pick(res.R), pick(res.t), pick(res.inliers), pick(res.quality),
-        c2d, c3d, cvalid, cam_f, cam_c, config, generator,
+        c2d, c3d, cvalid, cam_f, cam_c, config, generator, full_draws,
     )
     best_tid = template_ids_b[ar, best]
     proj = repre.raw_projector
@@ -341,12 +349,16 @@ def solve_batch(
     else:
         tpl = (obj_idx, best_tid)
         project = None if proj is None else (lambda x: pca_transform_gathered(proj, obj_idx, x))
+    if fetched_banks is None:
+        def winner_bank():
+            return repre.bank_vertices[tpl], repre.bank_feats[tpl], repre.bank_mask[tpl]
+    else:
+        def winner_bank():
+            feats, verts, mask = fetched_banks
+            return verts[ar, best], feats[ar, best], mask[ar, best]
     r_best, t_best, count_best = refine_winner(
         r_best, t_best, inliers_best, quality_best, c2d, c3d, cvalid, cam_f, cam_c, config,
-        fmap=feature_maps, project=project,
-        winner_bank=lambda: (
-            repre.bank_vertices[tpl], repre.bank_feats[tpl], repre.bank_mask[tpl]
-        ),
+        fmap=feature_maps, project=project, winner_bank=winner_bank,
     )
     num_grid = int(config.crop_size[0] / config.grid_cell_size) * int(
         config.crop_size[1] / config.grid_cell_size

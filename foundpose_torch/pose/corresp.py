@@ -93,9 +93,28 @@ def establish_correspondences_batch(
     """
     tids = template_ids.long()
     sel = tids if obj_idx is None else (obj_idx.long()[:, None], tids)
-    sel_feats = bank_feats[sel]  # [B, T', F, D]
-    sel_verts = bank_vertices[sel]
-    sel_mask = bank_mask[sel]
+    return correspondences_from_banks(
+        query_points, query_feats, query_mask, template_ids, template_scores,
+        bank_feats[sel], bank_vertices[sel], bank_mask[sel], top_k, approx_topk,
+    )
+
+
+def correspondences_from_banks(
+    query_points: torch.Tensor,
+    query_feats: torch.Tensor,
+    query_mask: torch.Tensor,
+    template_ids: torch.Tensor,
+    template_scores: torch.Tensor,
+    sel_feats: torch.Tensor,
+    sel_verts: torch.Tensor,
+    sel_mask: torch.Tensor,
+    top_k: int,
+    approx_topk: bool = False,
+) -> Correspondences:
+    """establish_correspondences_batch on banks already gathered per crop:
+    sel_feats [B, T', F, D], sel_verts [B, T', F, 3], sel_mask [B, T', F]
+    of the retrieved templates (the multi-device step fetches them from
+    the bank shards)."""
     qpts = query_points.float()
 
     if approx_topk:

@@ -15,6 +15,8 @@ from foundpose_torch.ops import sampling
 from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
 from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
 from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain
+from foundpose_torch.parallel import launch
+from foundpose_torch.parallel import mesh as mesh_mod
 from foundpose_torch.pose import pnp
 
 pytestmark = pytest.mark.cuda
@@ -316,3 +318,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # a [D, 128] panel of w past shared memory
         micro_int8.mm_bf16(torch.zeros(128, 448, dtype=torch.bfloat16, device=dev),
                            torch.zeros(448, 128, dtype=torch.bfloat16, device=dev))
+
+
+def _gloo_rank(rank, world, out_dir):
+    """Both collectives of the multi-device layer on cuda:0 from one of
+    two gloo ranks sharing the card."""
+    dev = torch.device("cuda", 0)
+    mesh = mesh_mod.make_mesh((1, 2))
+    x = torch.tensor([-0.0, 1.5, float("nan"), -3.25 - rank], device=dev)
+    local = {str(dt): x.to(dt) for dt in (torch.bfloat16, torch.float32)}
+    local["bool"] = x > rank
+    got = {k: mesh_mod._all_gather(v, mesh, "bank").cpu() for k, v in local.items()}
+    got["psum"] = mesh_mod._psum(torch.full((3,), rank + 0.5, device=dev), mesh, "bank").cpu()
+    torch.save({"got": got, "local": {k: v.cpu() for k, v in local.items()}},
+               f"{out_dir}/rank{rank}.pt")
+
+
+def test_gloo_collectives_on_one_card(dev, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one device):
+    _all_gather is bit-exact for bf16, f32 (-0.0 and NaN included) and
+    bool, in rank order on both ranks; _psum sums."""
+    launch.run(_gloo_rank, 2, str(tmp_path))
+    out = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    bits = {str(torch.bfloat16): torch.int16, str(torch.float32): torch.int32,
+            "bool": torch.uint8}
+    for r in range(2):
+        got = out[r]["got"]
+        for k, b in bits.items():
+            want = torch.stack([out[i]["local"][k] for i in range(2)])
+            assert torch.equal(got[k].view(b), want.view(b)), (k, got[k].view(b), want.view(b))
+        assert torch.equal(got["psum"], torch.full((3,), 2.0))

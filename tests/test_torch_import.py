@@ -63,11 +63,13 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.renderer.rasterizer", "foundpose_torch.vis.base",
     "foundpose_torch.vis.inference_vis", "foundpose_torch.vis.html_report",
     "foundpose_torch.ops.kmeans", "foundpose_torch.pipeline.gen_templates",
-    "foundpose_torch.pipeline.gen_repre",
+    "foundpose_torch.pipeline.gen_repre", "foundpose_torch.parallel.mesh",
+    "foundpose_torch.parallel.sharded_inference", "foundpose_torch.parallel.tp_vit",
+    "foundpose_torch.parallel.launch",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
-    """Each module of the serving, refinement, evaluation, CLI and builder
-    slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    """Each module of the serving, refinement, evaluation, CLI, builder and
+    multi-device slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
     blocked."""
     code = (
         "import sys, importlib\n"

@@ -374,7 +374,9 @@ def test_cli_main_runs_on_the_cpu(runs, tmp_path, monkeypatch, multi):
 
 
 def test_infer_defaults_to_the_card_and_refuses_a_mesh(runs):
+    """Without an initialized process group of the mesh's size, a mesh
+    raises (the mesh path itself: tests/test_torch_mesh_cli.py)."""
     assert t_infer.InferOpts().device == "cuda"
     opts = t_infer.InferOpts(**runs["fields"], mesh_shape=(2, 1), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun"):
         t_infer.infer(opts)

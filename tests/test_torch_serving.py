@@ -295,7 +295,9 @@ def test_engine_matches_jax_engine(rng, tmp_path):
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
+    """A mesh needs an initialized process group of its size (the mesh
+    path itself: tests/test_torch_mesh_engine.py)."""
+    with pytest.raises(ValueError, match="torchrun"):
         t_engine.PoseEngine(mesh_shape=(2, 1), device="cpu")
 
 
