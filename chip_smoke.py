@@ -112,6 +112,29 @@ Phases (each prints one line and raises on failure):
      matching, solve) against the single-device stage on all 16 crops,
      and reports each stage's largest difference (the fetch must be
      bit-equal). A rank's failure fails the run.
+  12 (run between phases 10 and 11)
+     DINOv2 ViT-G/14-reg (SwiGLU MLP, 1536 wide, 24 heads, hidden 4096, 40
+     blocks to layer 39, 1.1B parameters) at configs/infer/lmo.json with the
+     extractor replaced (the CLI's --set extractor_name=...), calibrated
+     random weights from seed 0. (a) realistic_params' seconds, the module
+     built on the card block by block, the attention logit maximum at 420
+     px over 40 layers (< 99, the capped window; computed in torch on the
+     card). (b) the block kernel's SwiGLU body against its twin at [16, 905,
+     1536] bf16 through all 40 layers, as phase 2 (per-layer output and
+     branch rel. L2, feature-map cosine, the column stabilizer once), with
+     CUDA-event times of kernel, twin and the PyTorch calls of one layer's
+     shapes together, the bound from utils/flops and the seven launches.
+     (c) pose_from_crops at batch 16 on an LM-O-scale synthetic
+     representation with PCA 1536 -> 256, as phase 3 (warm-up windows, 30
+     timed requests, stage split, peak memory, torch.profiler), and the
+     launches from zero over one request (block 40, buddies 1, scorer 1).
+     (d) one registration chunk (16 templates) of configs/gen_repre/lmo.json
+     with the ViT-G extractor, unfused f32: attention exactly 40 launches,
+     finite features; the 798-template build is not run. (e) phase 11's TP
+     leg at ViT-G width: the (1, 2, 2) step at lmo_exact.json (unfused f32,
+     12 heads and 2,048 hidden units a rank) on 4 gloo ranks sharing the
+     card, cut to the first 2 blocks (layer 1), against the single-device
+     step: decisions equal, R within 1e-4, t within 1e-5 m.
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -311,11 +334,9 @@ def bench_mask(torch, gen, batch, device):
 
 
 def phase_kernels(torch, model, vit_cfg, repre, config, device):
-    from foundpose_torch.benchmarks import block_split
     from foundpose_torch.models import dinov2
     from foundpose_torch.ops import sampling
     from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
-    from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain, layer_norm
     from foundpose_torch.pipeline.inference import inference_config_from_opts, preprocess_crops
 
     gen = torch.Generator(device=device).manual_seed(11)
@@ -325,69 +346,8 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
 
     # --- ViT block: real activations of random crops through all layers.
     crops = torch.rand(b, 420, 420, 3, generator=gen, device=device)
-    x0, (gh, gw) = dinov2.embed_tokens(model, preprocess_crops(crops, config))
-    kw = dict(seq_len=x0.shape[1], num_heads=vit_cfg.num_heads, head_dim=vit_cfg.head_dim,
-              eps=vit_cfg.layer_norm_eps, approx_gelu=vit_cfg.approx_gelu)
-    def rel_l2(got, ref):
-        return float(torch.linalg.vector_norm((got - ref).float())
-                     / torch.linalg.vector_norm(ref.float()))
-
-    xk, xp, rel, branch = x0, x0, [], []
-    for blk in list(model.blocks)[: vit_cfg.layer + 1]:
-        p = blk.kernel_params(bf16)
-        yk = fused_vit_block(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
-        ytwin = fused_vit_block_plain(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
-        rel.append(rel_l2(yk, ytwin))
-        branch.append(rel_l2(yk.float() - xk.float(), ytwin.float() - xk.float()))
-        xp = fused_vit_block_plain(xp, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
-        if len(rel) == 1:
-            block_err = float((yk.float() - ytwin.float()).abs().max())
-        xk = yk
-
-    def fmap(x):
-        toks = torch.cat([x[:, :1], x[:, 1 + vit_cfg.num_register_tokens:]], dim=1)
-        toks = layer_norm(toks, model.norm.weight.to(bf16), model.norm.bias.to(bf16),
-                          vit_cfg.layer_norm_eps)
-        return toks[:, 1:].float()
-
-    cos = torch.nn.functional.cosine_similarity(fmap(xk), fmap(xp), dim=-1).flatten()
-    cos_med, cos_min = float(cos.median()), float(cos.min())
-    p0 = model.blocks[0].kernel_params(bf16)
-    col_k = fused_vit_block(x0, p0, softmax_stabilizer="column", **kw)
-    col_p = fused_vit_block_plain(x0, p0, softmax_stabilizer="column", **kw)
-    col_rel = rel_l2(col_k, col_p)
-    col_branch = rel_l2(col_k.float() - x0.float(), col_p.float() - x0.float())
-    ms_k = cuda_ms(torch, lambda: fused_vit_block(x0, p0, softmax_stabilizer="capped", **kw))
-    ms_p = cuda_ms(torch, lambda: fused_vit_block_plain(x0, p0, softmax_stabilizer="capped", **kw))
-    t, d, hid = x0.shape[1], x0.shape[2], vit_cfg.mlp_hidden
-    m = b * t
-    block_flops = (2 * m * d * (4 * d + 2 * hid)
-                   + 4 * b * vit_cfg.num_heads * t * t * vit_cfg.head_dim)
-    bms, by = bound(block_flops, 2 * nbytes(x0) + nbytes(*p0.values()), "bf16")
-    result["vit_block"] = dict(
-        shape=list(x0.shape), rel_l2_per_layer=rel, branch_rel_l2_per_layer=branch,
-        column_rel_l2=col_rel, column_branch_rel_l2=col_branch,
-        fmap_cos_median=cos_med, fmap_cos_min=cos_min, max_abs_err=block_err,
-        ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by, library_ms=None,
-        gflop=block_flops / 1e9,
-    )
-    log(2, f"vit_block x{list(x0.shape)} bf16: rel L2/layer max {max(rel):.2e} (tol "
-           f"{BLOCK_REL_L2}), branches (out - x) max {max(branch):.2e} (tol {BRANCH_REL_L2}), "
-           f"column {col_rel:.2e} / branches {col_branch:.2e}, fmap cos median {cos_med:.6f} "
-           f"min {cos_min:.6f} (tol {FMAP_COS_MEDIAN}/{FMAP_COS_MIN}); kernel {ms_k:.3f} ms "
-           f"vs twin {ms_p:.3f} ms per layer")
-    check(max(rel) <= BLOCK_REL_L2 and col_rel <= BLOCK_REL_L2, f"block rel L2 {rel} {col_rel}")
-    check(max(branch) <= BRANCH_REL_L2 and col_branch <= BRANCH_REL_L2,
-          f"block branch rel L2 {branch} {col_branch}")
-    check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN, f"fmap cosine {cos_med} {cos_min}")
-    # The seven launches of one capped layer, and the PyTorch calls of the
-    # same shapes as yardsticks (the port never calls them).
-    split = block_split.launch_split(fused_vit_block, x0, p0, softmax_stabilizer="capped", **kw)
-    yard = block_split.yardsticks(x0, p0, vit_cfg.num_heads, vit_cfg.head_dim)
-    result["vit_block"].update(split=split, yardsticks_ms=yard)
-    log(2, "vit_block launches (device ms, torch.profiler, mean of 5 calls): "
-           + ", ".join(f"{r['launch']} {r['ms']:.4f}" for r in split)
-           + "; yardsticks ms: " + ", ".join(f"{k} {v:.4f}" for k, v in yard.items()))
+    x0, _ = dinov2.embed_tokens(model, preprocess_crops(crops, config))
+    result["vit_block"] = block_vs_twin(torch, model, vit_cfg, x0, 2)
 
     # --- Buddies: queries drawn from a retrieved template's bank plus noise.
     tn, q = config.top_n_templates, 900
@@ -437,6 +397,89 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     result["attention"] = attention_vs_twin(torch, model, vit_cfg, crops)
     result["micro_mm"] = probe_vs_twin(torch, device)
     return result
+
+
+def block_vs_twin(torch, model, vit_cfg, x0, phase):
+    """The block kernel against its twin on activations x0 [B, T, D] (bf16)
+    carried through blocks [0, layer]: relative L2 of each layer's output
+    and of its residual branches (out - x), the feature maps' cosine after
+    all layers, the "column" stabilizer on layer 0; CUDA-event times of
+    one capped layer (kernel, twin, and the PyTorch calls of its shapes
+    together), its bound from utils/flops, and its seven launches one by
+    one (benchmarks/block_split)."""
+    from foundpose_torch.benchmarks import block_split
+    from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain, layer_norm
+    from foundpose_torch.utils import flops
+
+    bf16 = torch.bfloat16
+    b, t, d = x0.shape
+    kw = dict(seq_len=t, num_heads=vit_cfg.num_heads, head_dim=vit_cfg.head_dim,
+              eps=vit_cfg.layer_norm_eps, approx_gelu=vit_cfg.approx_gelu)
+
+    def rel_l2(got, ref):
+        return float(torch.linalg.vector_norm((got - ref).float())
+                     / torch.linalg.vector_norm(ref.float()))
+
+    xk, xp, rel, branch = x0, x0, [], []
+    for blk in list(model.blocks)[: vit_cfg.layer + 1]:
+        p = blk.kernel_params(bf16)
+        yk = fused_vit_block(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        ytwin = fused_vit_block_plain(xk, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        rel.append(rel_l2(yk, ytwin))
+        branch.append(rel_l2(yk.float() - xk.float(), ytwin.float() - xk.float()))
+        xp = fused_vit_block_plain(xp, p, softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        if len(rel) == 1:
+            block_err = float((yk.float() - ytwin.float()).abs().max())
+        xk = yk
+
+    def fmap(x):
+        toks = torch.cat([x[:, :1], x[:, 1 + vit_cfg.num_register_tokens:]], dim=1)
+        toks = layer_norm(toks, model.norm.weight.to(bf16), model.norm.bias.to(bf16),
+                          vit_cfg.layer_norm_eps)
+        return toks[:, 1:].float()
+
+    cos = torch.nn.functional.cosine_similarity(fmap(xk), fmap(xp), dim=-1).flatten()
+    cos_med, cos_min = float(cos.median()), float(cos.min())
+    p0 = model.blocks[0].kernel_params(bf16)
+    col_k = fused_vit_block(x0, p0, softmax_stabilizer="column", **kw)
+    col_p = fused_vit_block_plain(x0, p0, softmax_stabilizer="column", **kw)
+    col_rel = rel_l2(col_k, col_p)
+    col_branch = rel_l2(col_k.float() - x0.float(), col_p.float() - x0.float())
+    ms_k = cuda_ms(torch, lambda: fused_vit_block(x0, p0, softmax_stabilizer="capped", **kw))
+    ms_p = cuda_ms(torch, lambda: fused_vit_block_plain(x0, p0, softmax_stabilizer="capped", **kw))
+    ms_lib = cuda_ms(torch, block_split.library_composite(x0, p0, vit_cfg.num_heads,
+                                                          vit_cfg.head_dim))
+    block_flops = b * flops.vit_layer_flops(vit_cfg, t)
+    bms, by = bound(block_flops, 2 * nbytes(x0) + nbytes(*p0.values()), "bf16")
+    res = dict(
+        shape=list(x0.shape), mlp="swiglu" if vit_cfg.swiglu else "gelu",
+        rel_l2_per_layer=rel, branch_rel_l2_per_layer=branch,
+        column_rel_l2=col_rel, column_branch_rel_l2=col_branch,
+        fmap_cos_median=cos_med, fmap_cos_min=cos_min, max_abs_err=block_err,
+        ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by, library_ms=None,
+        library_composite_ms=ms_lib, gflop=block_flops / 1e9,
+    )
+    log(phase, f"vit_block x{list(x0.shape)} bf16 ({res['mlp']} MLP, {len(rel)} layers): rel L2/"
+               f"layer max {max(rel):.2e} (tol {BLOCK_REL_L2}), branches (out - x) max "
+               f"{max(branch):.2e} (tol {BRANCH_REL_L2}), column {col_rel:.2e} / branches "
+               f"{col_branch:.2e}, fmap cos median {cos_med:.6f} min {cos_min:.6f} (tol "
+               f"{FMAP_COS_MEDIAN}/{FMAP_COS_MIN}); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms "
+               f"vs the PyTorch calls of its shapes together (F.linear x4, SDPA"
+               f"{', F.silu(a) * b' if vit_cfg.swiglu else ''}) {ms_lib:.3f} ms per layer; bound "
+               f"{bms:.4f} ms ({by}, {block_flops / 1e9:.1f} GFLOP), {100 * bms / ms_k:.1f}%")
+    check(max(rel) <= BLOCK_REL_L2 and col_rel <= BLOCK_REL_L2, f"block rel L2 {rel} {col_rel}")
+    check(max(branch) <= BRANCH_REL_L2 and col_branch <= BRANCH_REL_L2,
+          f"block branch rel L2 {branch} {col_branch}")
+    check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN, f"fmap cosine {cos_med} {cos_min}")
+    # The seven launches of one capped layer, and the PyTorch calls of the
+    # same shapes as yardsticks (the port never calls them).
+    split = block_split.launch_split(fused_vit_block, x0, p0, softmax_stabilizer="capped", **kw)
+    yard = block_split.yardsticks(x0, p0, vit_cfg.num_heads, vit_cfg.head_dim)
+    res.update(split=split, yardsticks_ms=yard)
+    log(phase, "vit_block launches (device ms, torch.profiler, mean of 5 calls): "
+               + ", ".join(f"{r['launch']} {r['ms']:.4f}" for r in split)
+               + "; yardsticks ms: " + ", ".join(f"{k} {v:.4f}" for k, v in yard.items()))
+    return res
 
 
 def scorer_vs_twin(torch, s, n, h):
@@ -1265,7 +1308,8 @@ def crop_world_repre(torch, model, config, pendings, seed, device, num_templates
     from foundpose_torch.pipeline import infer, inference
     from foundpose_torch.synthetic import realistic_repre
 
-    base = realistic_repre(seed, device, num_templates=num_templates)
+    base = realistic_repre(seed, device, num_templates=num_templates,
+                           raw_dim=model.cfg.embed_dim)
     g = torch.Generator(device=device).manual_seed(seed + 100)
     t, fmax, d = base.bank_feats.shape
     pts = sampling.grid_points(config.crop_size, config.grid_cell_size, device=device)
@@ -1997,12 +2041,13 @@ MESH_STEPS = {"step (2, 2) lmo.json": ((2, 2), LMO_CONFIG),
 SPLIT_OBJ = 3
 
 
-def mesh_world(torch, config_path, device, root):
-    """A step's inputs on the split phase 11 writes under `root`: the 16
-    crops of object CLI_LIDS[0] in its 2 images, its representation (cast
-    to the configuration's dtype), the model under the configuration's
-    ViT, injected draws from a seed. Returns (model, repre, crops, masks,
-    cams, config, draws)."""
+def mesh_world(torch, config_path, device, root, infer_set=None, weights="vits14_reg.pth"):
+    """A step's inputs on the split phase 11 (or 12) writes under `root`:
+    the 16 crops of object CLI_LIDS[0] in its 2 images, its representation
+    (cast to the configuration's dtype), the model `weights` under the
+    configuration's ViT, injected draws from a seed. `infer_set` replaces
+    entries of the configuration's infer_opts. Returns (model, repre,
+    crops, masks, cams, config, draws)."""
     import pickle
 
     from foundpose_torch.models.weights import load_checkpoint
@@ -2011,8 +2056,9 @@ def mesh_world(torch, config_path, device, root):
 
     with open(config_path) as f:
         opts = json.load(f)
+    opts["infer_opts"].update(infer_set or {})
     config = inference.inference_config_from_opts(opts)
-    model = load_checkpoint(os.path.join(root, "vits14_reg.pth"),
+    model = load_checkpoint(os.path.join(root, weights),
                             inference.vit_config_from_opts(opts)).to(device)
     repre = load_repre(os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])), device=device)
     with open(os.path.join(root, "crops.pkl"), "rb") as f:
@@ -2027,15 +2073,15 @@ def outputs_np(out):
     return {f.name: getattr(out, f.name).float().cpu().numpy() for f in dataclasses.fields(out)}
 
 
-def mesh_requests(torch, call):
+def mesh_requests(torch, call, timed=MESH_TIMED):
     """One request from zero counts (its outputs and launches), then
-    MESH_TIMED timed requests (host clock to torch.cuda.synchronize())."""
+    `timed` timed requests (host clock to torch.cuda.synchronize())."""
     reset_counts()
     out = call()
     torch.cuda.synchronize()
     launches = read_counts()
     lat = []
-    for _ in range(MESH_TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -2460,6 +2506,295 @@ def phase_mesh(torch, params, vit_cfg, device):
     return res
 
 
+# Phase 12: DINOv2 ViT-G/14-reg (SwiGLU, 1536 wide, 24 heads, 40 blocks) at
+# configs/infer/lmo.json with the extractor replaced through the options
+# seam (the CLI's --set extractor_name=...); its weights are bench_weights'
+# calibrated random weights from seed 0.
+VITG_EXTRACTOR = "dinov2_version=vitg14-reg_stride=14_facet=token_layer=39_norm=1"
+# (e) the tensor-parallel leg at ViT-G width, unfused f32 at lmo_exact.json
+# as phase 11's TP step, cut to the first 2 blocks (layer 1) so that gloo's
+# host round trips of [16, 905, 1536] f32 psums (89 MB, 4 a request) stay
+# within the run's time; VITG_TP_TIMED timed requests a rank.
+VITG_TP_SET = {"extractor_name": "dinov2_version=vitg14-reg_stride=14_facet=token_layer=1_norm=1",
+               "vit_overrides": {"depth": 2}}
+VITG_TP_WEIGHTS = "vitg14_reg_2blocks.pth"
+VITG_TP_TIMED = 3
+
+
+def vitg_model(torch, params, cfg, device):
+    """DinoV2 of `cfg` on `device` from a numpy tree in the JAX layout,
+    converted one block at a time: the f32 tree, a whole state dict and a
+    module on the host would hold 3 x 4.5 GB at ViT-G."""
+    from foundpose_torch.models.dinov2 import DinoV2
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+
+    with torch.device("meta"):
+        model = DinoV2(cfg)
+    model = model.to_empty(device=device).eval()
+    one = dataclasses.replace(cfg, depth=1)
+    head = {k: v for k, v in params.items() if k != "blocks"}
+    loaded = set()
+    with torch.no_grad():
+        for i in range(cfg.depth):
+            tree = dict(head, blocks={k: v[i : i + 1] for k, v in params["blocks"].items()})
+            for k, v in state_dict_from_jax_params(tree, one).items():
+                name = k.replace("blocks.0.", f"blocks.{i}.", 1)
+                if name not in loaded:
+                    model.get_parameter(name).copy_(v)
+                    loaded.add(name)
+    check(loaded == set(model.state_dict()), "ViT-G parameters left unloaded")
+    return model
+
+
+def logit_maxima(torch, model, images):
+    """Max |pre-softmax attention logit| of every block on `images` (NHWC
+    in [0, 1]), in f32 on the model's device: bench_weights'
+    attention_logit_maxima on the card (the unfused f32 block carries the
+    tokens from block to block)."""
+    import torch.nn.functional as F
+
+    from foundpose_torch.models import dinov2
+    from foundpose_torch.ops.vit_block import layer_norm
+
+    cfg = dataclasses.replace(model.cfg, use_fused_block=False)
+    x, _ = dinov2.embed_tokens(model, dinov2.normalize_images(images))
+    b, t, _ = x.shape
+    maxima = []
+    for blk in model.blocks:
+        p = blk.kernel_params(torch.float32)
+        xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps)
+        qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"])
+        q, k, _ = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+        maxima.append((q @ k.transpose(-1, -2)).abs().amax() / cfg.head_dim**0.5)
+        x = dinov2.unfused_block(x, p, cfg)
+    return torch.stack(maxima).tolist()
+
+
+def vitg_registration(torch, model, device):
+    """One registration chunk of gen_repre at configs/gen_repre/lmo.json
+    with the ViT-G extractor (layer 39; unfused f32, erf): 16 templates
+    (the main path's random crops, 500 mm of depth on the bench masks' box)
+    through register_templates on the phase's model, whose configuration
+    is swapped to the builder's for the call."""
+    from foundpose_torch.pipeline import gen_repre, inference
+    from foundpose_torch.utils import config as config_util
+
+    opts = config_util.load_opts(gen_repre.GenRepreOpts, [
+        "--opts-path", GR_CONFIG, "--set", f"extractor_name={VITG_EXTRACTOR}"])
+    reg_cfg = inference.vit_config_from_opts(dataclasses.asdict(opts))
+    serve_cfg = model.cfg
+    check(reg_cfg == dataclasses.replace(serve_cfg, use_fused_block=False, approx_gelu=False,
+                                         softmax_stabilizer="column"),
+          f"the builder's ViT-G config {reg_cfg} is not the served one unfused in f32")
+    images, _, _ = main_path_inputs(torch, device)
+    n = images.shape[0]
+    depths = torch.zeros(n, 420, 420, device=device)
+    depths[:, 80:340, 80:340] = 500.0  # mm; the eroded mask is depth > 0
+    cam_f = torch.full((n, 2), 600.0, device=device)
+    cam_c = torch.full((n, 2), 209.5, device=device)
+    cam_t = torch.eye(4, device=device).expand(n, 4, 4).contiguous()
+    model.cfg = reg_cfg
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        feats, _, valid = gen_repre.register_templates(
+            model, opts.grid_cell_size, (420, 420), images, depths, None, cam_f, cam_c, cam_t)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        model.cfg = serve_cfg
+    res = dict(seconds=secs, launches=launches, features_shape=list(feats.shape),
+               valid_cells=int(valid.sum()), finite=bool(torch.isfinite(feats[valid]).all()))
+    log(12, f"(d) one gen_repre registration chunk, configs/gen_repre/lmo.json with the ViT-G "
+            f"extractor (layer {reg_cfg.layer}, unfused f32), 16 templates: {secs:.3f} s, "
+            f"features {tuple(feats.shape)} ({res['valid_cells']} valid cells, finite "
+            f"{res['finite']}), launches {launches}; the 798-template build (50 chunks) is not run")
+    check(launches["attention"] == reg_cfg.layer + 1 and launches["vit_block"] == 0,
+          f"registration launches {launches}")
+    check(feats.shape[-1] == reg_cfg.embed_dim and res["finite"] and res["valid_cells"] > 0,
+          "ViT-G registration features")
+    return res
+
+
+def _vitg_tp_rank(rank, world, root):
+    """One gloo rank of phase 12 (e): the (1, 2, 2) tensor-parallel step at
+    ViT-G width (2 blocks) on the shared card; writes rank{rank}.pkl."""
+    import pickle
+
+    import torch
+
+    from foundpose_torch.parallel import mesh as mesh_mod
+    from foundpose_torch.parallel import sharded_inference as shd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh_mod.compute_device("cuda")
+    torch.cuda.set_device(device)
+    with torch.no_grad():
+        model, repre, crops, masks, cams, config, draws = mesh_world(
+            torch, LMO_EXACT_CONFIG, device, root, VITG_TP_SET, VITG_TP_WEIGHTS)
+        mesh = mesh_mod.make_mesh((1, 2, 2))
+        step = shd.make_object_mesh_step(mesh, config, repre)
+        params = shd.prepare_mesh_vit_params(mesh, model)
+        res = mesh_requests(torch, lambda: step(params, crops, masks, cams, draws=draws),
+                            timed=VITG_TP_TIMED)
+        res["coords"] = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def vitg_tp(torch, model, device):
+    """Phase 12 (e): the split of phase 11 (object 1, 2 images, 16 crops),
+    a crop-world representation from the 2-block ViT-G's own features (PCA
+    1536 -> 256), the single-device step at lmo_exact.json with the ViT-G
+    layer-1 extractor, then 4 gloo ranks sharing the card on the (1, 2, 2)
+    step (12 heads and 2,048 hidden units a rank)."""
+    import pickle
+    import tempfile
+
+    from foundpose_torch.models.weights import load_checkpoint
+    from foundpose_torch.parallel import launch
+    from foundpose_torch.pipeline import infer, inference
+    from foundpose_torch.repre import save_repre
+    from foundpose_torch.utils import config as config_util
+
+    res = {"label": MESH_LABEL}
+    with tempfile.TemporaryDirectory(prefix="foundpose_vitg_tp_") as root:
+        t0 = time.perf_counter()
+        det_path = write_split(torch, root, n_images=2)
+        sd = model.state_dict()
+        torch.save({k: v.cpu() for k, v in sd.items()
+                    if not k.startswith("blocks.") or int(k.split(".")[1]) < 2},
+                   os.path.join(root, VITG_TP_WEIGHTS))
+        opts = config_util.load_opts(infer.InferOpts, [
+            "--opts-path", LMO_EXACT_CONFIG, "--set", f"bop_root={root}/bop",
+            "--set", f"detections_path={det_path}", "--set", f"object_lids=[{CLI_LIDS[0]}]",
+            "--set", "dataset_crop_size=[640, 480]", "--set", f"output_dir={root}/out"])
+        pend = object_crops(opts, CLI_LIDS[0], [(1, 0), (1, 1)])
+        check(len(pend) == 16, f"{len(pend)} crops in the split")
+        with open(os.path.join(root, "crops.pkl"), "wb") as f:
+            pickle.dump(infer.stack_batch(pend, "cpu"), f)
+        with open(LMO_EXACT_CONFIG) as f:
+            exact = json.load(f)
+        exact["infer_opts"].update(VITG_TP_SET)
+        with torch.no_grad():
+            small = load_checkpoint(os.path.join(root, VITG_TP_WEIGHTS),
+                                    inference.vit_config_from_opts(exact)).to(device)
+            save_repre(crop_world_repre(torch, small, inference.inference_config_from_opts(exact),
+                                        pend, 0, device),
+                       os.path.join(root, "repre", "lmo", "v1", str(CLI_LIDS[0])))
+            del small, pend
+            small, repre, crops, masks, cams, config, draws = mesh_world(
+                torch, LMO_EXACT_CONFIG, device, root, VITG_TP_SET, VITG_TP_WEIGHTS)
+            ref = outputs_np(inference.pose_from_crops(small, crops, masks, cams, repre, config,
+                                                       draws=draws))
+            del small, repre
+        res["setup_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launch.run(_vitg_tp_rank, MESH_WORLD, root)
+        res["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for rk in ranks:
+        rk["vs_single"] = compare_poses(rk.pop("outputs"), ref, all_crops=False)
+    res["ranks"] = ranks
+    log(12, f"(e) TP step (1, 2, 2) at ViT-G width, 2 blocks, lmo_exact.json (f32), 16 crops, per "
+            f"rank [{MESH_LABEL}]: "
+            + "; ".join(f"rank {i} {rk['coords']}: launches {rk['launches']}, median "
+                        f"{rk['median_s'] * 1e3:.1f} ms of {VITG_TP_TIMED}"
+                        for i, rk in enumerate(ranks))
+            + f"; vs single device {ranks[0]['vs_single']}; setup {res['setup_s']:.1f} s, 4 "
+              f"ranks {res['ranks_wall_s']:.1f} s")
+    for i, rk in enumerate(ranks):
+        check(rk["vs_single"]["ok"] and rk["vs_single"]["both_succeeded"] > 0,
+              f"ViT-G TP rank {i} differs from the single-device step: {rk['vs_single']}")
+        check(rk["launches"]["attention"] == 2 and rk["launches"]["vit_block"] == 0
+              and rk["launches"]["ransac_score"] > 0, f"ViT-G TP rank {i} launched {rk['launches']}")
+    return res
+
+
+def phase_vitg(torch, device):
+    """DINOv2 ViT-G/14 at lmo.json on the card (see the module docstring)."""
+    from foundpose_torch.models import bench_weights, dinov2
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.synthetic import realistic_repre
+
+    with open(LMO_CONFIG) as f:
+        opts = json.load(f)
+    opts["infer_opts"]["extractor_name"] = VITG_EXTRACTOR
+    config = inference.inference_config_from_opts(opts)
+    vit_cfg = inference.vit_config_from_opts(opts)
+    check(vit_cfg.swiglu and (vit_cfg.embed_dim, vit_cfg.num_heads, vit_cfg.mlp_hidden,
+                              vit_cfg.depth, vit_cfg.layer) == (1536, 24, 4096, 40, 39),
+          f"not ViT-G/14: {vit_cfg}")
+    res = {}
+
+    # (a) The weights: numpy init and calibration, the module built block by
+    # block, then the logit maxima at 420 px on the card.
+    t0 = time.perf_counter()
+    params = bench_weights.realistic_params(0, vit_cfg)
+    t_params = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = vitg_model(torch, params, vit_cfg, device)
+    del params
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        probe = torch.as_tensor(bench_weights._probe_images(420, 1), device=device)
+        maxima = logit_maxima(torch, model, probe)
+    t_probe = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    res["weights"] = dict(params_seconds=t_params, module_seconds=t_model, probe_seconds=t_probe,
+                          attn_logit_max_420px=max(maxima), parameters=n_params)
+    log(12, f"(a) ViT-G/14-reg weights ({n_params / 1e9:.3f} B parameters): realistic_params "
+            f"{t_params:.1f} s (numpy init and calibration), module on the card block by block "
+            f"{t_model:.1f} s; attention logit max at 420 px {max(maxima):.2f} over {len(maxima)} "
+            f"layers "
+            f"(tol < 99, the capped window; torch on the card, {t_probe:.2f} s)")
+    check(max(maxima) < 99.0, f"attention logits {max(maxima)} leave the capped window")
+
+    with torch.no_grad():
+        # (b) Kernel against twin on real activations through all 40 layers.
+        gen = torch.Generator(device=device).manual_seed(11)
+        crops = torch.rand(16, 420, 420, 3, generator=gen, device=device)
+        x0, _ = dinov2.embed_tokens(model, inference.preprocess_crops(crops, config))
+        res["kernel"] = block_vs_twin(torch, model, vit_cfg, x0, 12)
+        del x0, crops
+
+        # (c) The main path.
+        repre = realistic_repre(0, device, raw_dim=vit_cfg.embed_dim).cast_banks(
+            config.compute_dtype)
+        res["main_path"] = phase_main_path(torch, model, repre, config, device, 12,
+                                           "vitg14 lmo.json", "profile_vitg.txt")
+        crops, masks, cams = main_path_inputs(torch, device)
+        torch.cuda.synchronize()
+        reset_counts()
+        inference.pose_from_crops(model, crops, masks, cams, repre, config,
+                                  generator=torch.Generator(device=device).manual_seed(1))
+        torch.cuda.synchronize()
+        one = read_counts()
+        res["main_path"]["launches_one_request"] = one
+        log(12, f"(c) launches from zero over one request: {one}")
+        check(one["vit_block"] == vit_cfg.layer + 1 and one["buddies"] == 1
+              and one["ransac_score"] == 1, f"ViT-G request launches {one}")
+        del repre, crops, masks, cams
+
+        # (d) One registration chunk of the builder.
+        res["registration"] = vitg_registration(torch, model, device)
+
+    # (e) The tensor-parallel leg.
+    res["tp"] = vitg_tp(torch, model, device)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -2515,6 +2850,10 @@ def main():
         report["cli"] = phase_cli(torch, params, vit_cfg, device,
                                   report["main_path"]["median_latency_s"])
     report["builder"] = phase_builder(torch, params, vit_cfg, device)
+    # Phase 12 runs before phase 11: once phase 11's process groups had run,
+    # torch.profiler in this process recorded 13 of a layer's 35 device
+    # kernels, and phase 12's launch split and request profile need them.
+    report["vitg"] = phase_vitg(torch, device)
     report["mesh"] = phase_mesh(torch, params, vit_cfg, device)
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2541,7 +2880,12 @@ def main():
                    mesh["TP step (1, 2, 2) lmo_exact.json"][0]["launches"],
                "PoseEngine mesh (2, 2) lmo_exact.json, rank 0":
                    mesh["engine"]["ranks"][0]["launches"],
-               "infer mesh [2, 2] lmo.json, rank 0": mesh["cli"]["ranks"][0]["launches"]}
+               "infer mesh [2, 2] lmo.json, rank 0": mesh["cli"]["ranks"][0]["launches"],
+               "vitg14 lmo.json": report["vitg"]["main_path"]["launches"],
+               "gen_repre vitg14, one registration chunk":
+                   report["vitg"]["registration"]["launches"],
+               "mesh TP (1, 2, 2) vitg14 layer=1 lmo_exact.json, rank 0":
+                   report["vitg"]["tp"]["ranks"][0]["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2557,6 +2901,10 @@ def main():
         if "lmo_exact" in k:  # the scorer at lmo_exact.json's 400 hypotheses (lmo.json above)
             entry["lmo_exact"] = {key: k["lmo_exact"][key] for key in keys}
             entry["lmo_exact"]["launches"] = report["serving"]["launches"]["ransac_score"]
+        if name == "vit_block":  # the SwiGLU body at ViT-G/14 (phase 12; GELU above)
+            g = report["vitg"]["kernel"]
+            entry["swiglu"] = {key: g[key] for key in keys}
+            entry["swiglu"]["launches"] = report["vitg"]["main_path"]["launches"]["vit_block"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,9 @@
 //   layer-scaled residual) -> LN2 -> GEMM(fc1, bias, GELU) -> GEMM(fc2, bias,
 //   layer-scaled residual)
 //
+// or, for SwiGLU models (DINOv2 ViT-G/14), GEMM(w12, bias, silu(gate) *
+// value) -> GEMM(w3, bias, layer-scaled residual) in place of fc1 and fc2.
+//
 // Replaces: foundpose_tpu/ops/vit_block.py:_block_kernel (the Pallas kernel
 // that runs the whole block for one image per grid step, with the image's
 // activations and the layer's weights resident in VMEM).
@@ -33,6 +36,18 @@
 //   registers at the rounding points below, stages the bf16 tile in the (then free) ring,
 //   and stores it by coalesced 16-byte stores (adding the residual, read
 //   the same way).
+// - SwiGLU (the TPU kernel's branch at ops/vit_block.py:303): the w12 GEMM
+//   gives h = silu(A W1^T + b1) * (A W2^T + b2), W1 = w12 rows [0, H) (gate),
+//   W2 = rows [H, 2H) (value). Its tile is 128 rows x 64 columns of h from
+//   one 128 x 128 accumulator: the producer loads the B slice as two 64-row
+//   TMA boxes, gate rows [n0, n0 + 64) then value rows [H + n0, H + n0 + 64),
+//   so accumulator column c is gate column n0 + c and column c + 64 its
+//   value. In the wgmma m64n128 layout both sit in one thread (acc[4j + e]
+//   and acc[4(j + 8) + e]), and the epilogue combines them in registers: no
+//   weight permutation, no second pass, no [M, 2H] buffer (in f32, as the
+//   rounding point needs, 474 MB at ViT-G with batch 16). At ViT-G (M =
+//   14,480, H = 4,096, K = 1,536) the product is 364 GFLOP: tensor-core
+//   bound (0.37 ms at 989 TFLOP/s).
 // - Attention: one block per (128-query tile, head, image), 8 warps of 16
 //   queries (128-query tiles halve the K/V re-reads from L2 of 64-query
 //   ones; the time moved by ~4%), mma.sync m16n8k16 with the logits S and
@@ -134,7 +149,8 @@ __global__ void __launch_bounds__(LN_THREADS)
 // ---------------------------------------------------------------------------
 // GEMM: C[M, N] = A[M, K] . W[N, K]^T (W in nn.Linear layout) + epilogue.
 // TMA + wgmma, one 128 x 128 tile per block: warps 0-7 are two consumer
-// warpgroups (64 rows each), warp 8 the TMA producer.
+// warpgroups (64 rows each), warp 8 the TMA producer. EPI_SWIGLU: W is
+// [2N, K] and a block writes 128 x 64 of C (TILE_N).
 // ---------------------------------------------------------------------------
 constexpr int GM = 128, GN = 128, GK = 64;  // GK bf16 = one 128-byte swizzle row
 constexpr int G_STAGES = 3;
@@ -144,7 +160,12 @@ constexpr int G_SROW = GN + 8;  // bf16 a row of the epilogue staging: 272 bytes
 constexpr size_t G_SMEM = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * sizeof(uint64_t);
 static_assert(GM * G_SROW * sizeof(bf16) <= G_STAGES * G_STAGE_BYTES, "staging fits the ring");
 
-enum Epilogue { EPI_QKV = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESID = 3 };
+enum Epilogue { EPI_QKV = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESID = 3, EPI_SWIGLU = 4 };
+
+// Output columns of one tile: SwiGLU's 128 accumulator columns are 64 gate
+// and 64 value columns of the same 64 outputs.
+template <int EPI>
+constexpr int TILE_N = EPI == EPI_SWIGLU ? GN / 2 : GN;
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(u)), written as
@@ -152,6 +173,11 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   // few f32 ulps of the tanh form, far below the bf16 cast that follows.
   const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
   return __fdividef(x, 1.f + fp::ex2(-2.8853900817779268f * inner));  // 2 log2(e)
+}
+
+__device__ __forceinline__ float silu(float x) {
+  // jax.nn.silu: x * sigmoid(x) = x / (1 + exp(-x)), exp from the SFU.
+  return __fdividef(x, 1.f + fp::ex2(-1.4426950408889634f * x));  // log2(e)
 }
 
 __device__ __forceinline__ float gelu_erf(float x) {
@@ -182,7 +208,8 @@ __global__ void __launch_bounds__(G_THREADS, 2)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
   uint64_t* empty = full + G_STAGES;
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  constexpr int TN = TILE_N<EPI>;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * TN;
   const int nk = (K + GK - 1) / GK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -203,7 +230,12 @@ __global__ void __launch_bounds__(G_THREADS, 2)
         fp::mbar_expect_tx(&full[stage], G_STAGE_BYTES);
         unsigned char* st = smem + stage * G_STAGE_BYTES;
         fp::tma_load_2d(st, &tm_a, &full[stage], s * GK, m0);
-        fp::tma_load_2d(st + G_A_BYTES, &tm_w, &full[stage], s * GK, n0);
+        if (EPI == EPI_SWIGLU) {  // gate rows, then the value rows of the same outputs
+          fp::tma_load_2d(st + G_A_BYTES, &tm_w, &full[stage], s * GK, n0);
+          fp::tma_load_2d(st + G_A_BYTES + TN * 128, &tm_w, &full[stage], s * GK, N + n0);
+        } else {
+          fp::tma_load_2d(st + G_A_BYTES, &tm_w, &full[stage], s * GK, n0);
+        }
         if (++stage == G_STAGES) stage = 0, phase ^= 1;
       }
     }
@@ -235,33 +267,57 @@ __global__ void __launch_bounds__(G_THREADS, 2)
   fp::wgmma_wait<0>();
 
   // Epilogue. Both warpgroups' products are done, so the ring is free: each
-  // warpgroup stages its 64 x 128 bf16 rows there, then stores them by
-  // 16-byte chunks, 16 lanes a row.
+  // warpgroup stages its 64 x TN bf16 rows there, then stores them by
+  // 16-byte chunks, TN / 8 lanes a row.
   fp::named_sync(1, G_CONSUMERS);
   bf16* stg = reinterpret_cast<bf16*>(smem) + wg * 64 * G_SROW;
   const int r0 = 16 * (warp % 4) + lane / 4;  // accumulator rows r0 and r0 + 8
+  if constexpr (EPI == EPI_SWIGLU) {
+    // Gate and value in f32 from their accumulators and biases; the product
+    // rounded to bf16 once, as the TPU kernel rounds it.
 #pragma unroll
-  for (int j = 0; j < GN / 8; ++j) {
-    const int col = 8 * j + 2 * (lane % 4), n = n0 + col;
-    float b0 = 0.f, b1 = 0.f, l0 = 0.f, l1 = 0.f;
-    if (n < N) {  // N % 8 == 0: n + 1 < N too
-      b0 = bf2f(bias[n]);
-      b1 = bf2f(bias[n + 1]);
-      if (EPI == EPI_RESID) {
-        l0 = bf2f(ls[n]);
-        l1 = bf2f(ls[n + 1]);
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4), n = n0 + col;
+      float g0 = 0.f, g1 = 0.f, v0 = 0.f, v1 = 0.f;
+      if (n < N) {  // N % 8 == 0: n + 1 < N too
+        g0 = bf2f(bias[n]);
+        g1 = bf2f(bias[n + 1]);
+        v0 = bf2f(bias[N + n]);
+        v1 = bf2f(bias[N + n + 1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* ga = acc + 4 * j + 2 * h;
+        const float* va = acc + 4 * (j + TN / 8) + 2 * h;
+        const float y0 = __fmul_rn(silu(__fadd_rn(ga[0], g0)), __fadd_rn(va[0], v0));
+        const float y1 = __fmul_rn(silu(__fadd_rn(ga[1], g1)), __fadd_rn(va[1], v1));
+        *reinterpret_cast<uint32_t*>(stg + (r0 + 8 * h) * G_SROW + col) = fp::pack_bf16(y0, y1);
       }
     }
+  } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v0 = epilogue<EPI>(acc[4 * j + 2 * h], b0, l0, n, scale_cols, scale);
-      const float v1 = epilogue<EPI>(acc[4 * j + 2 * h + 1], b1, l1, n + 1, scale_cols, scale);
-      *reinterpret_cast<uint32_t*>(stg + (r0 + 8 * h) * G_SROW + col) = fp::pack_bf16(v0, v1);
+    for (int j = 0; j < GN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4), n = n0 + col;
+      float b0 = 0.f, b1 = 0.f, l0 = 0.f, l1 = 0.f;
+      if (n < N) {  // N % 8 == 0: n + 1 < N too
+        b0 = bf2f(bias[n]);
+        b1 = bf2f(bias[n + 1]);
+        if (EPI == EPI_RESID) {
+          l0 = bf2f(ls[n]);
+          l1 = bf2f(ls[n + 1]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = epilogue<EPI>(acc[4 * j + 2 * h], b0, l0, n, scale_cols, scale);
+        const float v1 = epilogue<EPI>(acc[4 * j + 2 * h + 1], b1, l1, n + 1, scale_cols, scale);
+        *reinterpret_cast<uint32_t*>(stg + (r0 + 8 * h) * G_SROW + col) = fp::pack_bf16(v0, v1);
+      }
     }
   }
   fp::named_sync(2 + wg, 128);
-  for (int i = threadIdx.x % 128; i < 64 * (GN / 8); i += 128) {
-    const int r = i / (GN / 8), c = (i % (GN / 8)) * 8;
+  for (int i = threadIdx.x % 128; i < 64 * (TN / 8); i += 128) {
+    const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
     const int m = m0 + 64 * wg + r, n = n0 + c;
     if (m >= M || n >= N) continue;
     uint4 v = *reinterpret_cast<const uint4*>(stg + r * G_SROW + c);
@@ -424,14 +480,17 @@ int launch_gemm(const bf16* A, const bf16* W, const bf16* bias, bf16* C, int M, 
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(G_SMEM));
   if (attr != cudaSuccess) return static_cast<int>(attr);
+  // SwiGLU: W holds 2N rows (gate, value), loaded as two boxes of TN rows.
+  constexpr int TN = TILE_N<EPI>;
+  const int w_rows = EPI == EPI_SWIGLU ? 2 * N : N;
   CUtensorMap tm_a, tm_w;
   int rc = fp::encode_tensor_map_2d(&tm_a, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, GM, GK,
                                     CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc) return rc;
-  rc = fp::encode_tensor_map_2d(&tm_w, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, K, GN, GK,
+  rc = fp::encode_tensor_map_2d(&tm_w, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w_rows, K, TN, GK,
                                 CU_TENSOR_MAP_SWIZZLE_128B);
   if (rc) return rc;
-  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
+  const dim3 grid((N + TN - 1) / TN, (M + GM - 1) / GM);
   gemm_kernel<EPI><<<grid, G_THREADS, G_SMEM, stream>>>(tm_a, tm_w, bias, C, M, N, K, resid, ls,
                                                         scale_cols, scale);
   return fp::launch_status();
@@ -463,10 +522,12 @@ int launch_attention(const bf16* qkv, bf16* out, int batch, int T, int seq_len, 
 
 }  // namespace
 
-// x, out: [batch, tokens, dim] bf16. Weights bf16, nn.Linear layout. The five
-// scratch buffers are [batch*tokens, dim] (xn, attn, x1), [.., 3*dim] (qkv)
-// and [.., hidden] (h). Every pointer 16-byte aligned. Returns the first
-// non-zero cudaGetLastError().
+// x, out: [batch, tokens, dim] bf16. Weights bf16, nn.Linear layout; with
+// swiglu set, fc1_w/fc1_b are w12 [2*hidden, dim] / [2*hidden] (gate rows
+// first) and fc2_w/fc2_b are w3 [dim, hidden] / [dim], and gelu_tanh is not
+// read. The five scratch buffers are [batch*tokens, dim] (xn, attn, x1),
+// [.., 3*dim] (qkv) and [.., hidden] (h). Every pointer 16-byte aligned.
+// Returns the first non-zero cudaGetLastError().
 FP_EXPORT int fp_vit_block(
     const void* x, void* out, const void* n1w, const void* n1b,
     const void* qkv_w, const void* qkv_b, const void* proj_w,
@@ -474,7 +535,7 @@ FP_EXPORT int fp_vit_block(
     const void* fc1_w, const void* fc1_b, const void* fc2_w, const void* fc2_b,
     const void* ls2, void* xn_buf, void* qkv_buf, void* attn_buf, void* x1_buf,
     void* h_buf, int batch, int tokens, int seq_len, int dim, int hidden,
-    int num_heads, float eps, float q_scale, int gelu_tanh, int capped,
+    int num_heads, float eps, float q_scale, int gelu_tanh, int capped, int swiglu,
     void* stream_ptr) {
   if (dim != num_heads * HD || dim > 4 * 32 * LN_MAX_CHUNKS || hidden % 8 != 0 || hidden < 8 ||
       seq_len < 1 || seq_len > tokens || batch < 1 || batch > 65535 || num_heads > 65535)
@@ -495,10 +556,15 @@ FP_EXPORT int fp_vit_block(
                                    dim, dim, B(x), B(ls1), 0, 1.f, stream)))
     return rc;
   if ((rc = launch_layernorm(B(x1_buf), B(n2w), B(n2b), Bm(xn_buf), M, dim, eps, stream))) return rc;
-  rc = gelu_tanh ? launch_gemm<EPI_GELU_TANH>(B(xn_buf), B(fc1_w), B(fc1_b), Bm(h_buf), M,
-                                              hidden, dim, nullptr, nullptr, 0, 1.f, stream)
-                 : launch_gemm<EPI_GELU_ERF>(B(xn_buf), B(fc1_w), B(fc1_b), Bm(h_buf), M,
-                                             hidden, dim, nullptr, nullptr, 0, 1.f, stream);
+  if (swiglu)
+    rc = launch_gemm<EPI_SWIGLU>(B(xn_buf), B(fc1_w), B(fc1_b), Bm(h_buf), M, hidden, dim,
+                                 nullptr, nullptr, 0, 1.f, stream);
+  else if (gelu_tanh)
+    rc = launch_gemm<EPI_GELU_TANH>(B(xn_buf), B(fc1_w), B(fc1_b), Bm(h_buf), M, hidden, dim,
+                                    nullptr, nullptr, 0, 1.f, stream);
+  else
+    rc = launch_gemm<EPI_GELU_ERF>(B(xn_buf), B(fc1_w), B(fc1_b), Bm(h_buf), M, hidden, dim,
+                                   nullptr, nullptr, 0, 1.f, stream);
   if (rc) return rc;
   return launch_gemm<EPI_RESID>(B(h_buf), B(fc2_w), B(fc2_b), Bm(out), M, dim,
                                 hidden, B(x1_buf), B(ls2), 0, 1.f, stream);

@@ -50,11 +50,21 @@ def init_params(cfg: dinov2.DinoV2Config, generator: torch.Generator) -> Dict[st
         "ls1": const((depth, d), 1e-5),
         "norm2_scale": const((depth, d), 1.0), "norm2_bias": const((depth, d), 0.0),
         "ls2": const((depth, d), 1e-5),
-        "fc1_kernel": np.stack([trunc(d, h) for _ in range(depth)]),
-        "fc1_bias": const((depth, h), 0.0),
-        "fc2_kernel": np.stack([trunc(h, d) for _ in range(depth)]),
-        "fc2_bias": const((depth, d), 0.0),
     }
+    if cfg.swiglu:  # w12: gate columns [:h], value columns [h:]
+        blocks.update(
+            w12_kernel=np.stack([trunc(d, 2 * h) for _ in range(depth)]),
+            w12_bias=const((depth, 2 * h), 0.0),
+            w3_kernel=np.stack([trunc(h, d) for _ in range(depth)]),
+            w3_bias=const((depth, d), 0.0),
+        )
+    else:
+        blocks.update(
+            fc1_kernel=np.stack([trunc(d, h) for _ in range(depth)]),
+            fc1_bias=const((depth, h), 0.0),
+            fc2_kernel=np.stack([trunc(h, d) for _ in range(depth)]),
+            fc2_bias=const((depth, d), 0.0),
+        )
     params = {
         "patch_kernel": trunc(cfg.patch_size, cfg.patch_size, 3, d),
         "patch_bias": const((d,), 0.0),
@@ -149,8 +159,15 @@ def _np_blocks_pass(
         out = out @ blocks["proj_kernel"][i] + blocks["proj_bias"][i]
         x = x + blocks["ls1"][i] * out
         xn = _np_layer_norm(x, blocks["norm2_scale"][i], blocks["norm2_bias"][i], eps)
-        h = _np_gelu(xn @ blocks["fc1_kernel"][i] + blocks["fc1_bias"][i])
-        x = x + blocks["ls2"][i] * (h @ blocks["fc2_kernel"][i] + blocks["fc2_bias"][i])
+        if cfg.swiglu:
+            x12 = xn @ blocks["w12_kernel"][i] + blocks["w12_bias"][i]
+            x1, x2 = np.split(x12, 2, axis=-1)
+            h = (x1 / (1.0 + np.exp(-x1))) * x2
+            mlp = h @ blocks["w3_kernel"][i] + blocks["w3_bias"][i]
+        else:
+            h = _np_gelu(xn @ blocks["fc1_kernel"][i] + blocks["fc1_bias"][i])
+            mlp = h @ blocks["fc2_kernel"][i] + blocks["fc2_bias"][i]
+        x = x + blocks["ls2"][i] * mlp
     return maxima, scales
 
 

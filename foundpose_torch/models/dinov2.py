@@ -4,11 +4,12 @@ foundpose_tpu/models/dinov2.py).
 `DinoV2` is an nn.Module whose parameters carry the official DINOv2
 state-dict names (patch_embed.proj.*, cls_token, pos_embed,
 register_tokens, blocks.{i}.norm1|attn.qkv|attn.proj|ls1.gamma|norm2|
-mlp.fc1|mlp.fc2|ls2.gamma, norm.*), so an official checkpoint loads with
-`load_state_dict`. Parameters stay f32; each forward casts them to the
-images' dtype, as the JAX package does. With `use_fused_block` each
-transformer block runs through ops/vit_block.fused_vit_block (one CUDA
-kernel sequence, bf16 only); without it, the unfused block runs its dense
+mlp.fc1|mlp.fc2 (SwiGLU, ViT-G: mlp.w12|mlp.w3)|ls2.gamma, norm.*), so an
+official checkpoint loads with `load_state_dict`. Parameters stay f32;
+each forward casts them to the images' dtype, as the JAX package does.
+With `use_fused_block` each transformer block runs through
+ops/vit_block.fused_vit_block (one CUDA kernel sequence, bf16 only);
+without it, the unfused block runs its dense
 products with torch.matmul and its attention through
 ops/attention.fused_attention_bhtd. Either way the CUDA kernel runs on the
 GPU and its plain twin on the CPU. Public functions keep the JAX package's
@@ -27,7 +28,7 @@ from torch import nn
 
 from foundpose_torch.ops.attention import fused_attention_bhtd
 from foundpose_torch.structs import to_device
-from foundpose_torch.ops.vit_block import fused_vit_block, gelu, layer_norm
+from foundpose_torch.ops.vit_block import fused_vit_block, gelu, layer_norm, swiglu
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -157,33 +158,42 @@ class _Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, d)
 
 
+class _SwiGLU(nn.Module):
+    """DINOv2's SwiGLUFFNFused: w12 holds the gate rows [:h] and the value
+    rows [h:]; silu(gate) * value feeds w3."""
+
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(d, 2 * hidden)
+        self.w3 = nn.Linear(hidden, d)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: DinoV2Config):
         super().__init__()
-        if cfg.swiglu:
-            raise NotImplementedError("SwiGLU (ViT-G) blocks are not ported")
         d = cfg.embed_dim
         self.norm1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
         self.attn = _Attention(d)
         self.ls1 = _LayerScale(d)
         self.norm2 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.mlp = _Mlp(d, cfg.mlp_hidden)
+        self.mlp = (_SwiGLU if cfg.swiglu else _Mlp)(d, cfg.mlp_hidden)
         self.ls2 = _LayerScale(d)
 
     def kernel_params(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-        """This layer's weights for ops/vit_block, all cast to `dtype`
-        (the JAX package casts every block parameter, LayerNorm and layer
-        scale included, to the compute dtype)."""
+        """This layer's weights for ops/vit_block (its BLOCK_KEYS of the
+        layer's MLP), all cast to `dtype` (the JAX package casts every block
+        parameter, LayerNorm and layer scale included, to the compute
+        dtype)."""
         src = {
             "norm1_scale": self.norm1.weight, "norm1_bias": self.norm1.bias,
             "qkv_weight": self.attn.qkv.weight, "qkv_bias": self.attn.qkv.bias,
             "proj_weight": self.attn.proj.weight, "proj_bias": self.attn.proj.bias,
             "ls1": self.ls1.gamma,
             "norm2_scale": self.norm2.weight, "norm2_bias": self.norm2.bias,
-            "fc1_weight": self.mlp.fc1.weight, "fc1_bias": self.mlp.fc1.bias,
-            "fc2_weight": self.mlp.fc2.weight, "fc2_bias": self.mlp.fc2.bias,
             "ls2": self.ls2.gamma,
         }
+        for name, lin in self.mlp.named_children():
+            src[f"{name}_weight"], src[f"{name}_bias"] = lin.weight, lin.bias
         return {k: v.detach().to(dtype).contiguous() for k, v in src.items()}
 
 
@@ -294,7 +304,7 @@ def unfused_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config
     """The JAX package's unfused pre-norm block over x [B, T, D] with one
     layer's weights `p` (Block.kernel_params): head-major qkv, attention
     through ops/attention, proj, layer-scaled residuals, f32 LayerNorm
-    statistics, exact or tanh GELU."""
+    statistics, exact or tanh GELU, or SwiGLU."""
     b, t, d = x.shape
     eps = cfg.layer_norm_eps
     xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
@@ -304,8 +314,17 @@ def unfused_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config
     attn = F.linear(attn.transpose(1, 2).reshape(b, t, d), p["proj_weight"], p["proj_bias"])
     x = x + p["ls1"] * attn
     xn = layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
+    return x + p["ls2"] * mlp(xn, p, cfg)
+
+
+def mlp(xn: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config) -> torch.Tensor:
+    """The JAX package's `_mlp`: fc1 -> GELU -> fc2, or w12 -> silu(gate) *
+    value -> w3, in the dtype of `xn`."""
+    if cfg.swiglu:
+        return F.linear(swiglu(F.linear(xn, p["w12_weight"], p["w12_bias"])),
+                        p["w3_weight"], p["w3_bias"])
     h = gelu(F.linear(xn, p["fc1_weight"], p["fc1_bias"]), cfg.approx_gelu)
-    return x + p["ls2"] * F.linear(h, p["fc2_weight"], p["fc2_bias"])
+    return F.linear(h, p["fc2_weight"], p["fc2_bias"])
 
 
 def run_blocks(model: DinoV2, x: torch.Tensor, upto: int) -> torch.Tensor:
@@ -388,3 +407,43 @@ def normalize_images(images_nhwc: torch.Tensor) -> torch.Tensor:
     mean = to_device(torch.tensor(IMAGENET_MEAN, dtype=images_nhwc.dtype), images_nhwc.device)
     std = to_device(torch.tensor(IMAGENET_STD, dtype=images_nhwc.dtype), images_nhwc.device)
     return (images_nhwc - mean) / std
+
+
+@torch.no_grad()
+def extract_attention_maps(model: DinoV2, images_nhwc: torch.Tensor) -> torch.Tensor:
+    """Post-softmax attention probabilities [B, heads, T, T] of block
+    `cfg.layer` (the reference's facet="attn"; T counts the class and
+    register tokens): blocks [0, layer), then LN1 -> qkv -> logits scaled
+    in the compute dtype -> f32 softmax. An extraction endpoint: the plain
+    route whatever the fused-block switch."""
+    cfg = model.cfg
+    x, _ = embed_tokens(model, images_nhwc)
+    x = run_blocks(model, x, cfg.layer)
+    p = model.blocks[cfg.layer].kernel_params(x.dtype)
+    xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps)
+    qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"])
+    b, t, _ = qkv.shape
+    qkv = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+    logits = (qkv[0] @ qkv[1].transpose(-1, -2)) * (cfg.head_dim**-0.5)
+    return torch.softmax(logits.float(), dim=-1)
+
+
+@torch.no_grad()
+def forward_full(model: DinoV2, images_nhwc: torch.Tensor) -> torch.Tensor:
+    """All `cfg.depth` blocks, then the final LayerNorm: tokens [B, T, D]."""
+    cfg = model.cfg
+    x, _ = embed_tokens(model, images_nhwc)
+    x = run_blocks(model, x, cfg.depth)
+    return layer_norm(x, model.norm.weight, model.norm.bias, cfg.layer_norm_eps)
+
+
+def make_extractor(model_name: str):
+    """(cfg, extract) for a model-name DSL string; extract(model,
+    images_nhwc, compute_dtype=torch.float32) normalizes the images, casts
+    them and runs extract_facet."""
+    cfg = parse_model_name(model_name)
+
+    def extract(model: DinoV2, images_nhwc: torch.Tensor, compute_dtype=torch.float32):
+        return extract_facet(model, normalize_images(images_nhwc).to(compute_dtype))
+
+    return cfg, extract

@@ -1,13 +1,15 @@
-"""DINOv2 weights: official checkpoints and the JAX package's parameter
-tree (counterpart of foundpose_tpu/models/weights.py).
+"""DINOv2 weights: official checkpoints, the JAX package's parameter tree
+and the transformers naming (counterpart of foundpose_tpu/models/weights.py).
 
 `DinoV2` carries the official state-dict names, so an official
 `dinov2_<variant>[_reg4]_pretrain.pth` loads with `load_state_dict`
 (`strict=False`: the checkpoint also holds `mask_token`, which feature
-extraction does not use). The JAX package stores the same weights as a numpy/jax tree with blocks stacked on axis 0,
-conv kernels in HWIO and linear kernels as (in, out);
-`state_dict_from_jax_params` is the exact inverse of the JAX package's
-`params_from_torch_state_dict`.
+extraction does not use). The JAX package stores the same weights as a
+numpy/jax tree with blocks stacked on axis 0, conv kernels in HWIO and
+linear kernels as (in, out); `state_dict_from_jax_params` is the exact
+inverse of the JAX package's `params_from_torch_state_dict`, and
+`to_hf_state_dict` gives the same tree under the transformers
+`Dinov2WithRegistersModel` names.
 """
 
 from __future__ import annotations
@@ -69,12 +71,9 @@ def state_dict_from_jax_params(
     }
     if cfg.num_register_tokens:
         sd["register_tokens"] = t(params_np["register_tokens"])
-    if cfg.swiglu:
-        raise NotImplementedError("SwiGLU (ViT-G) blocks are not ported")
     blocks = {k: np.asarray(v) for k, v in params_np["blocks"].items()}
-    linear = {
-        "attn.qkv": "qkv", "attn.proj": "proj", "mlp.fc1": "fc1", "mlp.fc2": "fc2",
-    }
+    mlp = ("w12", "w3") if cfg.swiglu else ("fc1", "fc2")
+    linear = {"attn.qkv": "qkv", "attn.proj": "proj", **{f"mlp.{m}": m for m in mlp}}
     for i in range(cfg.depth):
         pre = f"blocks.{i}"
         sd[f"{pre}.norm1.weight"] = t(blocks["norm1_scale"][i])
@@ -87,4 +86,47 @@ def state_dict_from_jax_params(
             # (in, out) -> nn.Linear's (out, in).
             sd[f"{pre}.{name}.weight"] = t(blocks[f"{jax_name}_kernel"][i].T)
             sd[f"{pre}.{name}.bias"] = t(blocks[f"{jax_name}_bias"][i])
+    return sd
+
+
+def to_hf_state_dict(params_np: Dict[str, Any], cfg: DinoV2Config) -> Dict[str, torch.Tensor]:
+    """The JAX param tree under the transformers `Dinov2WithRegistersModel`
+    names (f32 torch tensors): q, k and v split out of qkv, layer scales as
+    `lambda1`, and the SwiGLU MLP as `mlp.weights_in` / `mlp.weights_out`."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    sd = {
+        "embeddings.cls_token": t(params_np["cls_token"]),
+        "embeddings.position_embeddings": t(params_np["pos_embed"]),
+        # HWIO (P, P, 3, D) -> OIHW (D, 3, P, P).
+        "embeddings.patch_embeddings.projection.weight": t(
+            np.asarray(params_np["patch_kernel"]).transpose(3, 2, 0, 1)),
+        "embeddings.patch_embeddings.projection.bias": t(params_np["patch_bias"]),
+        "layernorm.weight": t(params_np["norm_scale"]),
+        "layernorm.bias": t(params_np["norm_bias"]),
+    }
+    if cfg.num_register_tokens:
+        sd["embeddings.register_tokens"] = t(params_np["register_tokens"])
+    d = cfg.embed_dim
+    mlp = {"weights_in": "w12", "weights_out": "w3"} if cfg.swiglu else {"fc1": "fc1", "fc2": "fc2"}
+    for i in range(cfg.depth):
+        b = {k: np.asarray(v[i]) for k, v in params_np["blocks"].items()}
+        pre = f"encoder.layer.{i}"
+        qkv_w, qkv_b = b["qkv_kernel"].T, b["qkv_bias"]  # (3D, D): q, k, v rows
+        sd[f"{pre}.norm1.weight"] = t(b["norm1_scale"])
+        sd[f"{pre}.norm1.bias"] = t(b["norm1_bias"])
+        for j, name in enumerate(("query", "key", "value")):
+            sd[f"{pre}.attention.attention.{name}.weight"] = t(qkv_w[j * d : (j + 1) * d])
+            sd[f"{pre}.attention.attention.{name}.bias"] = t(qkv_b[j * d : (j + 1) * d])
+        sd[f"{pre}.attention.output.dense.weight"] = t(b["proj_kernel"].T)
+        sd[f"{pre}.attention.output.dense.bias"] = t(b["proj_bias"])
+        sd[f"{pre}.layer_scale1.lambda1"] = t(b["ls1"])
+        sd[f"{pre}.norm2.weight"] = t(b["norm2_scale"])
+        sd[f"{pre}.norm2.bias"] = t(b["norm2_bias"])
+        sd[f"{pre}.layer_scale2.lambda1"] = t(b["ls2"])
+        for hf_name, name in mlp.items():
+            sd[f"{pre}.mlp.{hf_name}.weight"] = t(b[f"{name}_kernel"].T)
+            sd[f"{pre}.mlp.{hf_name}.bias"] = t(b[f"{name}_bias"])
     return sd

@@ -3,8 +3,10 @@
 
 Counterpart of foundpose_tpu/ops/vit_block.py, whose Pallas kernel runs
 LN1 -> qkv -> per-head softmax attention -> proj -> layer-scaled residual ->
-LN2 -> fc1 -> GELU -> fc2 -> layer-scaled residual for one image per grid
-step. The twin computes the same function at the same rounding points:
+LN2 -> MLP -> layer-scaled residual for one image per grid step. The MLP is
+fc1 -> GELU -> fc2, or for SwiGLU models (ViT-G) w12 -> silu(gate) * value
+-> w3, where w12's rows [:H] are the gate and [H:] the value. The twin
+computes the same function at the same rounding points:
 
 - products take the inputs in the working dtype and accumulate in f32;
 - log2(e)/sqrt(head_dim) is folded into q before q is cast to the working
@@ -13,12 +15,14 @@ step. The twin computes the same function at the same rounding points:
   the per-query max is subtracted;
 - the normalizer is the f32 sum of p rounded to the working dtype, floored
   at 1e-30 and applied as a multiply by its reciprocal;
-- proj and fc2 outputs are rounded to the working dtype before
+- SwiGLU: gate and value leave the w12 product in f32, silu(gate) * value
+  is formed in f32 and rounded to the working dtype once;
+- proj and fc2 (w3) outputs are rounded to the working dtype before
   x + ls * y, which is evaluated in the working dtype.
 
 At f32 this coincides with the JAX package's unfused block. Keys at or past
 `seq_len` are masked out of the softmax; rows past it are computed but carry
-no meaning. The CUDA kernel takes bf16 only; SwiGLU (ViT-G) is not ported.
+no meaning. The CUDA kernel takes bf16 only.
 """
 
 from __future__ import annotations
@@ -34,11 +38,20 @@ _LOG2E = 1.4426950408889634
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _SQRT_HALF = math.sqrt(0.5)
 
-BLOCK_KEYS = (
+_ATTN_KEYS = (
     "norm1_scale", "norm1_bias", "qkv_weight", "qkv_bias", "proj_weight",
-    "proj_bias", "ls1", "norm2_scale", "norm2_bias", "fc1_weight", "fc1_bias",
-    "fc2_weight", "fc2_bias", "ls2",
+    "proj_bias", "ls1", "norm2_scale", "norm2_bias",
 )
+# One layer's weights by MLP variant, in the kernel's argument order.
+BLOCK_KEYS = {
+    "gelu": (*_ATTN_KEYS, "fc1_weight", "fc1_bias", "fc2_weight", "fc2_bias", "ls2"),
+    "swiglu": (*_ATTN_KEYS, "w12_weight", "w12_bias", "w3_weight", "w3_bias", "ls2"),
+}
+
+
+def is_swiglu(p: Dict[str, torch.Tensor]) -> bool:
+    """Whether the layer weights `p` hold a SwiGLU MLP (w12/w3)."""
+    return "w12_weight" in p
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -60,6 +73,13 @@ def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF)
 
 
+def swiglu(h: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * value over h = [..., 2H] (gate h[..., :H], value
+    h[..., H:]), in h's dtype."""
+    gate, value = h.chunk(2, dim=-1)
+    return torch.nn.functional.silu(gate) * value
+
+
 def _linear_f32(x, w, b):
     """x @ w.T + b with inputs in their dtype and f32 accumulation/output."""
     return x.float() @ w.float().t() + b.float()
@@ -76,7 +96,7 @@ def fused_vit_block_plain(
     softmax_stabilizer: str = "column",
 ) -> torch.Tensor:
     """Plain PyTorch block over x [B, T, D]; `p` holds one layer's weights
-    (BLOCK_KEYS, nn.Linear layout) in x's dtype."""
+    (BLOCK_KEYS["gelu"] or ["swiglu"], nn.Linear layout) in x's dtype."""
     b, t, d = x.shape
     dt = x.dtype
     seq_len = t if seq_len is None else seq_len
@@ -110,8 +130,12 @@ def fused_vit_block_plain(
     y = _linear_f32(attn, p["proj_weight"], p["proj_bias"]).to(dt)
     x = x + p["ls1"].to(dt) * y
     xn2 = layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
-    h1 = gelu(_linear_f32(xn2, p["fc1_weight"], p["fc1_bias"]), approx_gelu).to(dt)
-    y2 = _linear_f32(h1, p["fc2_weight"], p["fc2_bias"]).to(dt)
+    if is_swiglu(p):
+        h1 = swiglu(_linear_f32(xn2, p["w12_weight"], p["w12_bias"])).to(dt)
+        y2 = _linear_f32(h1, p["w3_weight"], p["w3_bias"]).to(dt)
+    else:
+        h1 = gelu(_linear_f32(xn2, p["fc1_weight"], p["fc1_bias"]), approx_gelu).to(dt)
+        y2 = _linear_f32(h1, p["fc2_weight"], p["fc2_bias"]).to(dt)
     return x + p["ls2"].to(dt) * y2
 
 
@@ -134,7 +158,9 @@ def fused_vit_block(
     if softmax_stabilizer not in ("capped", "column"):
         raise ValueError(f"unknown softmax_stabilizer {softmax_stabilizer!r}")
     b, t, d = x.shape
-    hidden = p["fc1_weight"].shape[0]
+    swi = is_swiglu(p)
+    w1, w2 = ("w12", "w3") if swi else ("fc1", "fc2")
+    hidden = p[f"{w2}_weight"].shape[1]
     seq_len = t if seq_len is None else seq_len
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_vit_block: the CUDA kernel takes bfloat16, got {x.dtype}")
@@ -145,15 +171,18 @@ def fused_vit_block(
         )
     if not 1 <= seq_len <= t:
         raise ValueError(f"seq_len={seq_len} outside [1, {t}]")
+    w1_rows = 2 * hidden if swi else hidden
     expected = {
         "qkv_weight": (3 * d, d), "qkv_bias": (3 * d,), "proj_weight": (d, d),
-        "fc1_weight": (hidden, d), "fc1_bias": (hidden,), "fc2_weight": (d, hidden),
+        f"{w1}_weight": (w1_rows, d), f"{w1}_bias": (w1_rows,), f"{w2}_weight": (d, hidden),
+        f"{w2}_bias": (d,),
     }
-    w = [p[k] for k in BLOCK_KEYS]
+    keys = BLOCK_KEYS["swiglu" if swi else "gelu"]
+    w = [p[k] for k in keys]
     for k, shape in expected.items():
         if tuple(p[k].shape) != shape:
             raise ValueError(f"fused_vit_block: {k} has shape {tuple(p[k].shape)}, want {shape}")
-    for k, a in zip(BLOCK_KEYS, w):
+    for k, a in zip(keys, w):
         if a.dtype != torch.bfloat16:
             raise ValueError(f"fused_vit_block: {k} must be bfloat16, got {a.dtype}")
     dev = _kernels.require_cuda("fused_vit_block", x, *w)
@@ -170,7 +199,7 @@ def fused_vit_block(
         x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in w),
         xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), h.data_ptr(),
         b, t, seq_len, d, hidden, num_heads, eps, head_dim ** -0.5 * _LOG2E,
-        int(approx_gelu), int(softmax_stabilizer == "capped"),
+        int(approx_gelu), int(softmax_stabilizer == "capped"), int(swi),
         _kernels.stream_ptr(dev),
     )
     _kernels.check(rc, "fp_vit_block")

@@ -7,7 +7,9 @@ The standard Megatron split, on torch.distributed:
   for its nh/n heads (ops/attention, the CUDA kernel on the card);
 - the output projection split on its input (head) axis: each rank makes a
   partial [B, T, D] sum, combined by ONE `_psum` per layer;
-- MLP fc1 split on the hidden axis, fc2 on its input axis: a second `_psum`.
+- MLP fc1 split on the hidden axis, fc2 on its input axis: a second `_psum`
+  (SwiGLU, ViT-G: the gate and value rows of w12 both cut to the rank's
+  hidden units, w3 on its input axis).
 
 Two psums of [B, T, D] a layer is the least collective traffic of this
 split; LayerNorm, layer scale and the residuals are local, and the bias of
@@ -18,8 +20,6 @@ computes a whole layer in one launch, so the two mid-layer psums cannot be
 placed inside it: the TP path runs the unfused block math, as the JAX
 package's does. Activations stay replicated over `model`, so crops can also
 be split over `data` in the same mesh.
-
-SwiGLU blocks (ViT-G) are not ported (models/dinov2.Block raises).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from foundpose_torch.models import dinov2
 from foundpose_torch.models.dinov2 import DinoV2, DinoV2Config
 from foundpose_torch.ops.attention import fused_attention_bhtd
-from foundpose_torch.ops.vit_block import gelu, layer_norm
+from foundpose_torch.ops.vit_block import gelu, layer_norm, swiglu
 from foundpose_torch.parallel import mesh as mesh_mod
 from foundpose_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
@@ -42,8 +42,6 @@ _FACETS = {"query": 0, "key": 1, "value": 2}
 
 def validate_tp(cfg: DinoV2Config, n_model: int) -> None:
     """The model axis must divide both the head count and the MLP width."""
-    if cfg.swiglu:
-        raise NotImplementedError("SwiGLU (ViT-G) blocks are not ported")
     if cfg.num_heads % n_model:
         raise ValueError(f"model axis {n_model} does not divide num_heads={cfg.num_heads}")
     if cfg.mlp_hidden % n_model:
@@ -55,7 +53,8 @@ class TPParams:
     """One rank's share of a DinoV2: `model` for the replicated parameters
     (patch embedding, tokens, position embedding, final norm) and, per
     layer, the block weights (Block.kernel_params names, f32) with qkv,
-    proj, fc1 and fc2 cut to this rank's heads and hidden units."""
+    proj and the MLP (fc1 and fc2, or w12 and w3) cut to this rank's heads
+    and hidden units."""
 
     model: DinoV2
     blocks: List[Dict[str, torch.Tensor]]
@@ -74,11 +73,13 @@ def prepare_tp_params(model: DinoV2, n_model: int, index: int) -> TPParams:
       qkv.weight [3D, D] rows as (3, nh, hd, D), sliced on nh; its bias too
       proj.weight [D, D] columns as (D, nh, hd), sliced on nh
       fc1 rows and bias, fc2 columns: sliced on the hidden axis
+      w12 [2H, D] rows and bias as (2, H): gate and value rows sliced on H
+      (a flat cut would cross the gate/value boundary); w3 columns on H
     """
     cfg = model.cfg
     validate_tp(cfg, n_model)
     nh, hd, d = cfg.num_heads, cfg.head_dim, cfg.embed_dim
-    nl, hl = nh // n_model, cfg.mlp_hidden // n_model
+    h, nl, hl = cfg.mlp_hidden, nh // n_model, cfg.mlp_hidden // n_model
     heads = slice(index * nl, (index + 1) * nl)
     hidden = slice(index * hl, (index + 1) * hl)
     blocks = []
@@ -87,9 +88,14 @@ def prepare_tp_params(model: DinoV2, n_model: int, index: int) -> TPParams:
         p["qkv_weight"] = p["qkv_weight"].reshape(3, nh, hd, d)[:, heads].reshape(3 * nl * hd, d)
         p["qkv_bias"] = p["qkv_bias"].reshape(3, nh, hd)[:, heads].reshape(3 * nl * hd)
         p["proj_weight"] = p["proj_weight"].reshape(d, nh, hd)[:, heads].reshape(d, nl * hd)
-        p["fc1_weight"] = p["fc1_weight"][hidden]
-        p["fc1_bias"] = p["fc1_bias"][hidden]
-        p["fc2_weight"] = p["fc2_weight"][:, hidden]
+        if cfg.swiglu:
+            p["w12_weight"] = p["w12_weight"].reshape(2, h, d)[:, hidden].reshape(2 * hl, d)
+            p["w12_bias"] = p["w12_bias"].reshape(2, h)[:, hidden].reshape(2 * hl)
+            p["w3_weight"] = p["w3_weight"][:, hidden]
+        else:
+            p["fc1_weight"] = p["fc1_weight"][hidden]
+            p["fc1_bias"] = p["fc1_bias"][hidden]
+            p["fc2_weight"] = p["fc2_weight"][:, hidden]
         blocks.append({k: v.contiguous() for k, v in p.items()})
     return TPParams(model=model, blocks=blocks, index=index, count=n_model)
 
@@ -112,8 +118,13 @@ def _tp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config, me
     a = _reduce(F.linear(attn.float(), p["proj_weight"].float()), p["proj_bias"], mesh, x.dtype)
     x = x + p["ls1"] * a
     xn = layer_norm(x, p["norm2_scale"], p["norm2_bias"], eps)
-    h = gelu(F.linear(xn, p["fc1_weight"], p["fc1_bias"]), cfg.approx_gelu)
-    m = _reduce(F.linear(h.float(), p["fc2_weight"].float()), p["fc2_bias"], mesh, x.dtype)
+    if cfg.swiglu:
+        h = swiglu(F.linear(xn, p["w12_weight"], p["w12_bias"]))
+        w, bias = p["w3_weight"], p["w3_bias"]
+    else:
+        h = gelu(F.linear(xn, p["fc1_weight"], p["fc1_bias"]), cfg.approx_gelu)
+        w, bias = p["fc2_weight"], p["fc2_bias"]
+    m = _reduce(F.linear(h.float(), w.float()), bias, mesh, x.dtype)
     return x + p["ls2"] * m
 
 

@@ -31,18 +31,23 @@ def dev():
     return torch.device("cuda")
 
 
-def block_weights(gen, d, hidden, dev):
+def block_weights(gen, d, hidden, dev, swiglu=False):
     def n(*s, scale=0.05):
         return (torch.randn(s, generator=gen) * scale).to(dev, torch.bfloat16)
 
-    return {
+    p = {
         "norm1_scale": 1 + n(d), "norm1_bias": n(d),
         "qkv_weight": n(3 * d, d, scale=0.2), "qkv_bias": n(3 * d),
         "proj_weight": n(d, d), "proj_bias": n(d), "ls1": 0.5 + n(d),
         "norm2_scale": 1 + n(d), "norm2_bias": n(d), "ls2": 0.5 + n(d),
-        "fc1_weight": n(hidden, d), "fc1_bias": n(hidden),
-        "fc2_weight": n(d, hidden), "fc2_bias": n(d),
     }
+    if swiglu:  # w12: gate rows [:hidden], value rows [hidden:]
+        p.update(w12_weight=n(2 * hidden, d), w12_bias=n(2 * hidden),
+                 w3_weight=n(d, hidden), w3_bias=n(d))
+    else:
+        p.update(fc1_weight=n(hidden, d), fc1_bias=n(hidden),
+                 fc2_weight=n(d, hidden), fc2_bias=n(d))
+    return p
 
 
 @pytest.mark.parametrize("stabilizer", ["capped", "column"])
@@ -74,6 +79,45 @@ def test_vit_block_kernel_at_full_width(dev, stabilizer, approx_gelu):
     p = block_weights(gen, d, hidden, dev)
     x = torch.randn(2, 905, d, generator=gen).to(dev, torch.bfloat16)
     kw = dict(num_heads=6, head_dim=64, approx_gelu=approx_gelu, softmax_stabilizer=stabilizer)
+    got = fused_vit_block(x, p, **kw).float()
+    ref = fused_vit_block_plain(x, p, **kw).float()
+    xf = x.float()
+    for a, b in ((got, ref), (got - xf, ref - xf)):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
+
+
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("batch,tokens,seq_len,hidden", [(3, 150, 141, 512), (2, 160, 160, 352)])
+def test_vit_block_kernel_swiglu_matches_twin(dev, stabilizer, batch, tokens, seq_len, hidden):
+    """The SwiGLU body (w12 GEMM with the gate/value epilogue, then w3):
+    relative L2 <= 1e-2 on the output and the residual branches below
+    seq_len (bf16); 3 x 150 rows is ragged M, and hidden 352 is not a
+    multiple of the epilogue's 64-column tile (gate boxes read into the
+    value rows there; those columns are never stored)."""
+    gen = torch.Generator().manual_seed(2)
+    d = 128
+    p = block_weights(gen, d, hidden, dev, swiglu=True)
+    x = torch.randn(batch, tokens, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(seq_len=seq_len, num_heads=2, head_dim=64, softmax_stabilizer=stabilizer)
+    before = fused_vit_block.launches
+    got = fused_vit_block(x, p, **kw)[:, :seq_len].float()
+    ref = fused_vit_block_plain(x, p, **kw)[:, :seq_len].float()
+    assert fused_vit_block.launches == before + 1
+    xf = x[:, :seq_len].float()
+    for a, b in ((got, ref), (got - xf, ref - xf)):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
+
+
+def test_vit_block_kernel_swiglu_at_vitg_width(dev):
+    """ViT-G/14 widths (d 1536 = the LayerNorm kernel's limit, 24 heads,
+    SwiGLU hidden 4096; w3's K is 4096, 64 slices through the ring) at 2
+    crops of 905 tokens: relative L2 <= 1e-2 on the output and on the
+    residual branches."""
+    gen = torch.Generator().manual_seed(9)
+    d, hidden = 1536, 4096
+    p = block_weights(gen, d, hidden, dev, swiglu=True)
+    x = torch.randn(2, 905, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=24, head_dim=64, softmax_stabilizer="capped")
     got = fused_vit_block(x, p, **kw).float()
     ref = fused_vit_block_plain(x, p, **kw).float()
     xf = x.float()

@@ -65,11 +65,14 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.ops.kmeans", "foundpose_torch.pipeline.gen_templates",
     "foundpose_torch.pipeline.gen_repre", "foundpose_torch.parallel.mesh",
     "foundpose_torch.parallel.sharded_inference", "foundpose_torch.parallel.tp_vit",
-    "foundpose_torch.parallel.launch",
+    "foundpose_torch.parallel.launch", "foundpose_torch.models.dinov2",
+    "foundpose_torch.models.weights", "foundpose_torch.models.bench_weights",
+    "foundpose_torch.utils.flops", "foundpose_torch.utils.profiling",
+    "foundpose_torch.benchmarks.block_split",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
-    """Each module of the serving, refinement, evaluation, CLI, builder and
-    multi-device slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    """Each module of the serving, refinement, evaluation, CLI, builder,
+    multi-device and ViT-G slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
     blocked."""
     code = (
         "import sys, importlib\n"

@@ -113,13 +113,14 @@ def test_pose_from_features_matches_jax_on_structured_world(rng, approx_topk):
     np.testing.assert_allclose(got.score.numpy(), np.asarray(ref.score), atol=1e-6)
 
 
-def test_pose_from_crops_tiny_vit_matches_jax(rng):
-    """Tiny ViT: feature maps within 1e-4; fed the same feature maps, the
-    port makes the JAX package's decisions; its own pose_from_crops agrees
-    with both."""
+@pytest.mark.parametrize("swiglu", [False, True])
+def test_pose_from_crops_tiny_vit_matches_jax(rng, swiglu):
+    """Tiny ViT (GELU MLP, or SwiGLU as ViT-G's): feature maps within 1e-4;
+    fed the same feature maps, the port makes the JAX package's decisions;
+    its own pose_from_crops agrees with both."""
     cfg_kw = dict(
         variant="vits14", embed_dim=32, depth=2, num_heads=2, mlp_ratio=4.0,
-        swiglu=False, patch_size=14, num_register_tokens=4, pos_grid=6,
+        swiglu=swiglu, patch_size=14, num_register_tokens=4, pos_grid=6,
         stride=14, facet="token", layer=1, apply_norm=True,
     )
     jvit = j_dinov2.DinoV2Config(**cfg_kw)

@@ -32,14 +32,16 @@ from foundpose_torch.parallel import tp_vit
 TP_VIT = dict(variant="vits14", embed_dim=64, depth=3, num_heads=4, mlp_ratio=4.0,
               swiglu=False, patch_size=14, num_register_tokens=4, pos_grid=6, stride=14,
               layer=2, apply_norm=True)
+# The same with ViT-G's SwiGLU MLP (hidden 176: 88 units a rank of 2).
+TP_VITG = dict(TP_VIT, variant="vitg14", swiglu=True)
 FACETS = ("token", "key")
 # World size -> the TP meshes run on it.
 MESHES = {2: ((1, 1, 2),), 4: ((2, 1, 2),)}
 REL_L2 = 1e-5
 
 
-def tp_model(state, facet):
-    model = t_dinov2.DinoV2(t_dinov2.DinoV2Config(facet=facet, **TP_VIT))
+def tp_model(state, facet, vit=TP_VIT):
+    model = t_dinov2.DinoV2(t_dinov2.DinoV2Config(**dict(vit, facet=facet)))
     model.load_state_dict(state)
     return model.eval()
 
@@ -63,6 +65,11 @@ def _rank(rank, world, in_path, out_dir):
                 mesh_mod._psum = psum
             res["extract"][shape, facet] = {k: v.numpy() for k, v in out.items()}
             res["psums"][shape, facet] = calls.count(mesh_mod.MODEL_AXIS)
+        # SwiGLU (ViT-G's MLP), token facet.
+        model = tp_model(p["state_swiglu"], "token", TP_VITG)
+        out = tp_vit.make_tp_extractor(mesh, model.cfg)(
+            t_sharded.prepare_mesh_vit_params(mesh, model), p["images"])
+        res["extract"][shape, "swiglu"] = {k: v.numpy() for k, v in out.items()}
     if world == 4:
         # The composed (1, 2, 2) step and the (2, 2) step on one world.
         w = p["world"]
@@ -88,9 +95,14 @@ def tp(tmp_path_factory):
 
     jcfg = j_dinov2.DinoV2Config(**TP_VIT)
     params = jax.tree.map(np.asarray, j_dinov2.init_params(jax.random.PRNGKey(0), jcfg))
+    params_g = jax.tree.map(np.asarray, j_dinov2.init_params(
+        jax.random.PRNGKey(1), j_dinov2.DinoV2Config(**TP_VITG)))
     images = np.random.default_rng(0).uniform(size=(4, 84, 84, 3)).astype(np.float32)
     w = build_world()
     inputs = dict(state=state_dict_from_jax_params(params, t_dinov2.DinoV2Config(**TP_VIT)),
+                  state_swiglu=state_dict_from_jax_params(
+                      params_g, t_dinov2.DinoV2Config(**TP_VITG)),
+                  params_swiglu=params_g,
                   images=torch.from_numpy(images), world=dict(w["port"], draws=w["draws"]))
     d = tmp_path_factory.mktemp("tp")
     with open(d / "inputs.pkl", "wb") as f:
@@ -130,6 +142,34 @@ def test_tp_extractor_matches_single_device_and_jax(tp, world, shape, facet):
     jout = jax.jit(j_tp.make_tp_extractor(m, jcfg))(params_tp, jnp.asarray(images))
     for r in ranks[world]:
         got = r["extract"][shape, facet]
+        for k in ("feature_maps", "cls_tokens"):
+            assert got[k].shape == tuple(ref[k].shape)
+            assert rel_l2(got[k], ref[k].numpy()) <= REL_L2, k
+            assert rel_l2(got[k], np.asarray(jout[k])) <= REL_L2, k
+
+
+@pytest.mark.parametrize("world,shape", [(2, (1, 1, 2)), (4, (2, 1, 2))])
+def test_tp_extractor_swiglu_matches_single_device_and_jax(tp, world, shape):
+    """The same for a SwiGLU ViT (ViT-G's MLP: w12's gate and value rows cut
+    to a rank's hidden units, w3's bias added once after the psum), token
+    facet, on every rank: the port's extract_facet and the JAX package's
+    make_tp_extractor, relative L2 <= 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from foundpose_tpu.models import dinov2 as j_dinov2
+    from foundpose_tpu.parallel import mesh as j_mesh
+    from foundpose_tpu.parallel import tp_vit as j_tp
+
+    _, images, inputs, ranks = tp
+    model = tp_model(inputs["state_swiglu"], "token", TP_VITG)
+    ref = t_dinov2.extract_facet(model, t_dinov2.normalize_images(inputs["images"]))
+    jcfg = j_dinov2.DinoV2Config(**TP_VITG)
+    m = j_mesh.make_mesh(shape=shape)
+    params_tp = j_tp.shard_tp_params(j_tp.prepare_tp_params(inputs["params_swiglu"], jcfg), m)
+    jout = jax.jit(j_tp.make_tp_extractor(m, jcfg))(params_tp, jnp.asarray(images))
+    for r in ranks[world]:
+        got = r["extract"][shape, "swiglu"]
         for k in ("feature_maps", "cls_tokens"):
             assert got[k].shape == tuple(ref[k].shape)
             assert rel_l2(got[k], ref[k].numpy()) <= REL_L2, k
@@ -199,13 +239,52 @@ def test_prepare_tp_params_matches_jax_shards():
                                           np.asarray(blocks["proj_bias"][layer]))
 
 
+def test_prepare_tp_params_swiglu_matches_jax_shards():
+    """SwiGLU: each rank's w12 holds the gate and the value rows of its
+    hidden units (the JAX package's [d, 2, h] layout cut on h), its bias
+    likewise, and w3 its input columns; ViT-G's 4,096 units split 2,048 a
+    rank of 2 the same way (by shape)."""
+    import jax
+
+    from foundpose_torch.models.weights import state_dict_from_jax_params
+    from foundpose_tpu.models import dinov2 as j_dinov2
+    from foundpose_tpu.parallel import tp_vit as j_tp
+
+    jcfg = j_dinov2.DinoV2Config(**TP_VITG)
+    params = jax.tree.map(np.asarray, j_dinov2.init_params(jax.random.PRNGKey(2), jcfg))
+    blocks = j_tp.prepare_tp_params(params, jcfg)["blocks"]
+    model = tp_model(state_dict_from_jax_params(params, t_dinov2.DinoV2Config(**TP_VITG)),
+                     "token", TP_VITG)
+    n, d = 2, 64
+    hl = model.cfg.mlp_hidden // n
+    for j in range(n):
+        shard = tp_vit.prepare_tp_params(model, n, j)
+        hidden = slice(j * hl, (j + 1) * hl)
+        for layer, p in enumerate(shard.blocks):
+            assert "fc1_weight" not in p
+            np.testing.assert_array_equal(  # [d, 2, hl]
+                p["w12_weight"].reshape(2, hl, d).permute(2, 0, 1).numpy(),
+                np.asarray(blocks["w12_kernel"][layer])[:, :, hidden])
+            np.testing.assert_array_equal(p["w12_bias"].reshape(2, hl).numpy(),
+                                          np.asarray(blocks["w12_bias"][layer])[:, hidden])
+            np.testing.assert_array_equal(p["w3_weight"].t().numpy(),
+                                          np.asarray(blocks["w3_kernel"][layer])[hidden])
+            np.testing.assert_array_equal(p["w3_bias"].numpy(),
+                                          np.asarray(blocks["w3_bias"][layer]))
+    vitg = t_dinov2.parse_model_name("dinov2_vitg14-reg")
+    tp_vit.validate_tp(vitg, 2)
+    assert vitg.mlp_hidden // 2 == 2048 and vitg.num_heads // 2 == 12
+
+
 def test_tp_validation_rejects_bad_widths():
     """A model axis that divides neither the heads nor the MLP width
-    raises, as the JAX package's validate_tp; SwiGLU is not ported."""
+    raises, as the JAX package's validate_tp; SwiGLU widths are held to
+    the same rule."""
     cfg = t_dinov2.DinoV2Config(**dict(TP_VIT, num_heads=6))
     with pytest.raises(ValueError):
         tp_vit.validate_tp(cfg, 4)
     with pytest.raises(ValueError):
         tp_vit.validate_tp(t_dinov2.DinoV2Config(**dict(TP_VIT, mlp_ratio=4.25)), 3)
-    with pytest.raises(NotImplementedError):
-        tp_vit.validate_tp(t_dinov2.DinoV2Config(**dict(TP_VIT, swiglu=True)), 2)
+    tp_vit.validate_tp(t_dinov2.DinoV2Config(**TP_VITG), 2)
+    with pytest.raises(ValueError):  # 128 hidden units over 3
+        tp_vit.validate_tp(t_dinov2.DinoV2Config(**dict(TP_VITG, num_heads=3, embed_dim=48)), 3)
