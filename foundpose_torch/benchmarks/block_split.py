@@ -1,6 +1,6 @@
 """Per-launch split of the fused ViT block kernel on the card.
 
-    python3 foundpose_torch/benchmarks/block_split.py [--root DIR] [--vitg]   # needs a CUDA GPU
+    python3 foundpose_torch/benchmarks/block_split.py [--root DIR] [--vitg | --vitl]   # needs a CUDA GPU
 
 `fp_vit_block` (csrc/vit_block.cu) launches seven kernels in sequence:
 LN1, the qkv GEMM, attention, the proj GEMM, LN2, the fc1 GEMM and the fc2
@@ -14,7 +14,8 @@ hidden units. The port never calls any of them.
 
 Run alone, the script builds a seeded [16, 905, 384] bf16 input and one
 ViT-S/14 layer of random weights (`--vitg`: [16, 905, 1536] and one
-ViT-G/14 SwiGLU layer, hidden 4096) and prints one JSON line. `--root`
+ViT-G/14 SwiGLU layer, hidden 4096; `--vitl`: [16, 901, 1024] and one
+ViT-L/14 GELU layer, 16 heads, hidden 4096) and prints one JSON line. `--root`
 imports foundpose_torch from another checkout (for example a parent commit
 unpacked into the ignored `_parent/`), so that two versions of the kernel
 are timed by one script on the same inputs.
@@ -56,23 +57,33 @@ def cuda_ms(fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
-def launch_split(block, x, p, calls=5, **kw):
+class ProfilerLostKernels(RuntimeError):
+    """torch.profiler kept fewer device kernels than the calls launched, on
+    every try: the split is not measured (never reported from a part)."""
+
+    def __init__(self, seen, want, names):
+        super().__init__(f"{seen} device kernels in {want // 7} block calls, want {want}: {names}")
+        self.seen, self.want = seen, want
+
+
+def launch_split(block, x, p, calls=5, pads=(0.5, 3.0, 3.0), **kw):
     """Device ms of each of the seven kernels that one `block(x, p, **kw)`
     call launches, in launch order, averaged over `calls` profiled calls.
 
-    Late in a long process torch.profiler kept 10 and 13 of 35 kernels of
-    a ViT-G window that closed at the synchronize (the window's own time
-    on the host was ~10 ms), and every kernel of a window that stays open
-    long after its last kernel; so the window stays open `pad` seconds
-    after the synchronize, longer on a retry, and a split that still
-    misses a kernel raises."""
+    torch.profiler sometimes keeps only part of a window's device kernels:
+    late in a long process 10 and 13 of 35 in a ViT-G window that closed at
+    the synchronize, and 20 of 35 (ViT-L, batch 16) or 33 of 35 (ViT-L,
+    batch 128, in a process of its own) on every try of a window held open
+    after it. So each try, one profiler session, holds its window open
+    `pads[i]` seconds after the synchronize, and if no try keeps every
+    kernel, ProfilerLostKernels is raised."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = LAUNCHES[_variant(p)]
     block(x, p, **kw)
     torch.cuda.synchronize()
-    for pad in (0.5, 3.0):
+    for pad in pads:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 block(x, p, **kw)
@@ -83,8 +94,8 @@ def launch_split(block, x, p, calls=5, **kw):
         if len(kernels) == calls * len(names):
             break
     else:
-        raise RuntimeError(f"{len(kernels)} device kernels in {calls} block calls, want "
-                           f"{calls * len(names)}: {sorted({e.name[:60] for e in kernels})}")
+        raise ProfilerLostKernels(len(kernels), calls * len(names),
+                                  sorted({e.name[:60] for e in kernels}))
     rows = []
     for i, launch in enumerate(names):
         evs = kernels[i::len(names)]
@@ -176,8 +187,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), help="checkout whose foundpose_torch is timed")
-    ap.add_argument("--vitg", action="store_true",
-                    help="a ViT-G/14 SwiGLU layer (d 1536, 24 heads, hidden 4096)")
+    width = ap.add_mutually_exclusive_group()
+    width.add_argument("--vitg", action="store_true",
+                       help="a ViT-G/14 SwiGLU layer (d 1536, 24 heads, hidden 4096)")
+    width.add_argument("--vitl", action="store_true",
+                       help="a ViT-L/14 GELU layer (d 1024, 16 heads, hidden 4096, 901 tokens)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("block_split: CUDA is not available", file=sys.stderr)
@@ -185,9 +199,10 @@ def main(argv=None):
     sys.path.insert(0, os.path.abspath(args.root))
     from foundpose_torch.ops.vit_block import fused_vit_block
 
-    d, heads, hidden = (1536, 24, 4096) if args.vitg else (384, 6, 1536)
+    tokens, d, heads, hidden = ((905, 1536, 24, 4096) if args.vitg else (901, 1024, 16, 4096)
+                                if args.vitl else (905, 384, 6, 1536))
     gen = torch.Generator().manual_seed(1)
-    x = torch.randn(16, 905, d, generator=gen).to("cuda", torch.bfloat16)
+    x = torch.randn(16, tokens, d, generator=gen).to("cuda", torch.bfloat16)
     p = seeded_layer(d, hidden, swiglu=args.vitg)
     kw = dict(num_heads=heads, head_dim=64, approx_gelu=True, softmax_stabilizer="capped")
     rows = launch_split(fused_vit_block, x, p, **kw)

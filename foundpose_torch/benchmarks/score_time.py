@@ -84,26 +84,36 @@ def device_ms(fn, calls=20, kernel="score_kernel", sessions=3):
     """Mean device ms of the `kernel` launches of `calls` calls of `fn` under
     torch.profiler; each call must launch it exactly once. A profiler session
     now and then loses device records (on the H100 it has recorded none, or
-    19 of 20 launches); such a session is run again, at most `sessions`
-    times in all."""
+    19 of 20 launches on each of 3 sessions); such a session is run again,
+    at most `sessions` times in all. If none keeps every record, the mean is
+    taken over the records of the session that kept most, when that is at
+    least half of the launches (each record is one whole launch's time), and
+    the loss is noted on stderr; with fewer, it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best, seen = [], set()
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen |= {e.name[:60] for e in dev}
         evs = [e for e in dev if kernel in e.name]
+        if len(evs) > len(best):
+            best = evs
         if len(evs) == calls:
             break
     else:
-        seen = sorted({e.name[:60] for e in dev})
-        raise RuntimeError(f"{len(evs)} {kernel} launches in {calls} calls; device events: {seen}")
-    return sum(e.time_range.elapsed_us() for e in evs) / calls / 1e3
+        if 2 * len(best) < calls:
+            raise RuntimeError(f"{len(best)} {kernel} launches in {calls} calls; device events: "
+                               f"{sorted(seen)}")
+        print(f"device_ms: torch.profiler kept {len(best)} of {calls} {kernel} launches at best "
+              f"in {sessions} sessions; the mean is over those", file=sys.stderr)
+    return sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3
 
 
 def main(argv=None):

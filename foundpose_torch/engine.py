@@ -36,7 +36,7 @@ from foundpose_torch.parallel import sharded_inference
 from foundpose_torch.pipeline import inference
 from foundpose_torch.pipeline.multi_object import pose_from_crops_multi
 from foundpose_torch.repre import ObjectRepre, stack_repres
-from foundpose_torch.structs import PinholeCamera
+from foundpose_torch.structs import PinholeCamera, to_device
 
 
 class PoseEngine:
@@ -55,6 +55,7 @@ class PoseEngine:
         extractor_overrides: Optional[Dict[str, Any]] = None,
         mesh_shape: Optional[Tuple[int, ...]] = None,
         device="cuda",
+        model: Optional[dinov2.DinoV2] = None,
     ):
         """extractor_overrides: DinoV2Config field overrides, e.g.
         {"use_fused_block": True, "approx_gelu": True,
@@ -67,7 +68,10 @@ class PoseEngine:
         the ViT tensor-parallel (parallel/tp_vit). The data axis must
         divide batch_size, and a process group of prod(mesh_shape) ranks
         must be initialized (e.g. under torchrun); "cuda" then means this
-        rank's card (parallel/mesh.compute_device)."""
+        rank's card (parallel/mesh.compute_device).
+
+        model: a DinoV2 of the resolved configuration to serve, moved to
+        the device; `weights_path` and `seed` then make no weights."""
         self._mesh = None
         if mesh_shape:
             if batch_size % mesh_shape[0]:
@@ -79,7 +83,11 @@ class PoseEngine:
         self.vit_cfg = dinov2.parse_model_name(extractor_name)
         if extractor_overrides:
             self.vit_cfg = dataclasses.replace(self.vit_cfg, **extractor_overrides)
-        self.model = load_or_init(self.vit_cfg, weights_path, seed).to(self.device)
+        if model is None:
+            model = load_or_init(self.vit_cfg, weights_path, seed)
+        elif model.cfg != self.vit_cfg:
+            raise ValueError(f"model is {model.cfg}, the engine resolved {self.vit_cfg}")
+        self.model = model.to(self.device)
         self.config = config or inference.InferenceConfig()
         self.batch_size = batch_size
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -140,7 +148,7 @@ class PoseEngine:
         above 1.5), its camera, and the boxes' crop cameras (host tensors,
         batched and one per box)."""
         h, w = image.shape[:2]
-        img = torch.as_tensor(np.asarray(image)).to(self.device).float()
+        img = to_device(np.asarray(image), self.device).float()
         if np.asarray(image).max() > 1.5:
             img = img / 255.0
         src_cam = PinholeCamera.from_intrinsic_matrix(np.asarray(K, np.float32), w, h)
@@ -164,7 +172,7 @@ class PoseEngine:
             stack = np.stack([a.astype(np.uint8) for a in arrs])
         else:
             stack = np.stack([a.astype(np.float32) for a in arrs])
-        return torch.as_tensor(stack).to(self.device)
+        return to_device(stack, self.device)
 
     # -- packed outputs ---------------------------------------------------------
 
@@ -199,10 +207,12 @@ class PoseEngine:
             "crop_camera": crop_cam,
         }
 
-    def _serve(self, image, boxes_xyxy, masks, K, step) -> List[Dict[str, Any]]:
-        """Pads index chunks to the batch size, warps and runs every chunk,
-        then fetches and unpacks. `step(crops, crop_masks, cams, chunk,
-        pad, draws)` runs the online step on one padded chunk."""
+    def _dispatch(self, image, boxes_xyxy, masks, K, step):
+        """Pads index chunks to the batch size, then warps and runs every
+        chunk without waiting for the card. `step(crops, crop_masks, cams,
+        chunk, pad, draws)` runs the online step on one padded chunk.
+        Returns the crop cameras and [(chunk, packed [B, 16] on the
+        device)]."""
         h, w = image.shape[:2]
         n = len(boxes_xyxy)
         img, src_cam, cams, crop_cams = self._prepare_cams(image, boxes_xyxy, K)
@@ -218,6 +228,11 @@ class PoseEngine:
             self._counter += 1
             out = step(crops, crop_masks, dst, chunk, pad, self._draws(bs))
             packed.append((chunk, self._pack_outputs(out)))
+        return crop_cams, packed
+
+    def _serve(self, image, boxes_xyxy, masks, K, step) -> List[Dict[str, Any]]:
+        """`_dispatch`, then one fetch per chunk and the unpacked rows."""
+        crop_cams, packed = self._dispatch(image, boxes_xyxy, masks, K, step)
         results: List[Dict[str, Any]] = []
         for chunk, p in packed:
             p = p.cpu().numpy()  # one transfer per chunk
@@ -244,9 +259,11 @@ class PoseEngine:
         """
         if len(boxes_xyxy) == 0:
             return []
-        repre = self._repres[obj_id]
         masks = list(masks) if masks is not None else [None] * len(boxes_xyxy)
+        return self._serve(image, boxes_xyxy, masks, K, self._object_step(obj_id))
 
+    def _object_step(self, obj_id: int):
+        """The `step` of `_dispatch` for detections of one object."""
         if self._mesh is not None:
             mesh_step, params = self._mesh_object_step(obj_id), self._get_mesh_params()
 
@@ -254,13 +271,14 @@ class PoseEngine:
                 return mesh_step(params, crops, crop_masks, cams, generator=self.generator,
                                  draws=draws)
         else:
+            repre = self._repres[obj_id]
+
             def step(crops, crop_masks, cams, chunk, pad, draws):
                 return inference.pose_from_crops(
                     self.model, crops, crop_masks, cams, repre, self.config,
                     generator=self.generator, draws=draws,
                 )
-
-        return self._serve(image, boxes_xyxy, masks, K, step)
+        return step
 
     def _multi(self):
         """(object order, stacked repre, mesh step or None), rebuilt after
@@ -288,9 +306,8 @@ class PoseEngine:
         obj_to_idx = {o: i for i, o in enumerate(order)}
 
         def step(crops, crop_masks, cams, chunk, pad, draws):
-            obj_idx = torch.tensor(
-                [obj_to_idx[detections[i]["obj_id"]] for i in chunk] + [0] * pad,
-                device=self.device,
+            obj_idx = to_device(
+                [obj_to_idx[detections[i]["obj_id"]] for i in chunk] + [0] * pad, self.device
             )
             if mesh_step is not None:
                 return mesh_step(self._get_mesh_params(), crops, crop_masks, cams, obj_idx,

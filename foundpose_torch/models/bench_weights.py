@@ -188,6 +188,30 @@ def attention_logit_maxima(
     return maxima
 
 
+@torch.no_grad()
+def model_logit_maxima(model: dinov2.DinoV2, images: torch.Tensor) -> torch.Tensor:
+    """attention_logit_maxima of a DinoV2 module on `images` (NHWC in [0,
+    1]) in f32 on the module's device: max |pre-softmax attention logit|
+    of blocks 0..cfg.layer, the unfused f32 block carrying the tokens from
+    block to block. Returns a [layer + 1] tensor on that device."""
+    import dataclasses
+
+    from foundpose_torch.ops.vit_block import layer_norm
+
+    cfg = dataclasses.replace(model.cfg, use_fused_block=False)
+    x, _ = dinov2.embed_tokens(model, dinov2.normalize_images(images))
+    b, t, _ = x.shape
+    maxima = []
+    for blk in list(model.blocks)[: cfg.layer + 1]:
+        p = blk.kernel_params(torch.float32)
+        xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps)
+        qkv = torch.nn.functional.linear(xn, p["qkv_weight"], p["qkv_bias"])
+        q, k, _ = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+        maxima.append((q @ k.transpose(-1, -2)).abs().amax() / cfg.head_dim**0.5)
+        x = dinov2.unfused_block(x, p, cfg)
+    return torch.stack(maxima)
+
+
 def realistic_params(
     seed: int,
     cfg: dinov2.DinoV2Config,

@@ -355,23 +355,34 @@ def extract_facet(model: DinoV2, images_nhwc: torch.Tensor) -> Dict[str, torch.T
     {"cls_tokens": [B, D], "feature_maps": [B, gh, gw, D]}, register tokens
     dropped, final LayerNorm applied if cfg.apply_norm."""
     cfg = model.cfg
-    x, (gh, gw) = embed_tokens(model, images_nhwc)
+    x, grid_hw = embed_tokens(model, images_nhwc)
+    x = run_blocks(model, x, facet_depth(cfg))
+    return facet_outputs(model, facet_tokens(model, x), grid_hw)
+
+
+def facet_depth(cfg: DinoV2Config) -> int:
+    """Blocks that extract_facet runs whole: [0, layer] for the token
+    facet; [0, layer) for a query, key or value facet, whose layer adds its
+    qkv projection alone."""
+    return cfg.layer + 1 if cfg.facet == "token" else cfg.layer
+
+
+def facet_tokens(model: DinoV2, x: torch.Tensor) -> torch.Tensor:
+    """The facet's tokens [B, T, D] from the tokens after facet_depth(cfg)
+    blocks."""
+    cfg = model.cfg
     if cfg.facet == "token":
-        feats = run_blocks(model, x, cfg.layer + 1)
-    elif cfg.facet in ("query", "key", "value"):
-        x = run_blocks(model, x, cfg.layer)
+        return x
+    if cfg.facet in ("query", "key", "value"):
         p = model.blocks[cfg.layer].kernel_params(x.dtype)
         xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps)
         qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"])
         b, t, _ = qkv.shape
         qkv = qkv.reshape(b, t, 3, cfg.num_heads, cfg.head_dim)
-        feats = head_minor(qkv[:, :, {"query": 0, "key": 1, "value": 2}[cfg.facet]])
-    elif cfg.facet == "attn":
+        return head_minor(qkv[:, :, {"query": 0, "key": 1, "value": 2}[cfg.facet]])
+    if cfg.facet == "attn":
         raise ValueError("facet='attn' is not a descriptor facet")
-    else:
-        raise ValueError(f"unsupported facet: {cfg.facet}")
-
-    return facet_outputs(model, feats, (gh, gw))
+    raise ValueError(f"unsupported facet: {cfg.facet}")
 
 
 def head_minor(sel: torch.Tensor) -> torch.Tensor:

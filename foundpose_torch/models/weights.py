@@ -52,6 +52,31 @@ def load_or_init(cfg: DinoV2Config, weights_path: Optional[str] = None, seed: in
     return model.eval()
 
 
+def module_from_jax_params(params_np: Dict[str, Any], cfg: DinoV2Config, device) -> DinoV2:
+    """DinoV2 (eval mode) on `device` from a numpy tree in the JAX layout,
+    converted and copied one block at a time: the f32 tree, a whole state
+    dict and a module on the host would hold 3 x 4.5 GB at ViT-G."""
+    import dataclasses
+
+    with torch.device("meta"):
+        model = DinoV2(cfg)
+    model = model.to_empty(device=device).eval()
+    one = dataclasses.replace(cfg, depth=1)
+    head = {k: v for k, v in params_np.items() if k != "blocks"}
+    loaded = set()
+    with torch.no_grad():
+        for i in range(cfg.depth):
+            tree = dict(head, blocks={k: v[i : i + 1] for k, v in params_np["blocks"].items()})
+            for k, v in state_dict_from_jax_params(tree, one).items():
+                name = k.replace("blocks.0.", f"blocks.{i}.", 1)
+                if name not in loaded:
+                    model.get_parameter(name).copy_(v)
+                    loaded.add(name)
+    if loaded != set(model.state_dict()):
+        raise RuntimeError(f"parameters left unloaded: {set(model.state_dict()) - loaded}")
+    return model
+
+
 def state_dict_from_jax_params(
     params_np: Dict[str, Any], cfg: DinoV2Config
 ) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from foundpose_torch.structs import PinholeCamera
+from foundpose_torch.structs import PinholeCamera, to_device
 
 
 def _gather(image: torch.Tensor, yi, xi, fill, batch: Optional[torch.Tensor] = None):
@@ -39,7 +39,7 @@ def _bilinear(image, xy, fill_value, batch=None):
     wy = (y - y0)[..., None]
     x0i = x0.long()
     y0i = y0.long()
-    fill = torch.tensor(fill_value, dtype=torch.float32, device=image.device)
+    fill = torch.full((), fill_value, dtype=torch.float32, device=image.device)
     v00 = _gather(image, y0i, x0i, fill, batch)
     v01 = _gather(image, y0i, x0i + 1, fill, batch)
     v10 = _gather(image, y0i + 1, x0i, fill, batch)
@@ -52,7 +52,7 @@ def _bilinear(image, xy, fill_value, batch=None):
 def _nearest(image, xy, fill_value, batch=None):
     xi = torch.round(xy[..., 0]).long()
     yi = torch.round(xy[..., 1]).long()
-    fill = torch.tensor(fill_value, dtype=image.dtype, device=image.device)
+    fill = torch.full((), fill_value, dtype=image.dtype, device=image.device)
     return _gather(image, yi, xi, fill, batch)
 
 
@@ -114,12 +114,12 @@ def warp_image(
     quarter-pixel offsets (the JAX package's stand-in for cv2.INTER_AREA)."""
     if interpolation == "area2x":
         grid = _pixel_grid(dst_camera.height, dst_camera.width, dst_camera.f.device)
+        offsets = to_device([[dx, dy] for dx in (-0.25, 0.25) for dy in (-0.25, 0.25)], grid.device)
         acc = None
-        for dx in (-0.25, 0.25):
-            for dy in (-0.25, 0.25):
-                win = grid + torch.tensor([dx, dy], device=grid.device)
-                s = bilinear_sample(src_image, _source_coords(src_camera, dst_camera, win, depth_check))
-                acc = s if acc is None else acc + s
+        for offset in offsets:
+            s = bilinear_sample(src_image, _source_coords(src_camera, dst_camera, grid + offset,
+                                                          depth_check))
+            acc = s if acc is None else acc + s
         return acc / 4.0
     src_win = backward_map(src_camera, dst_camera, depth_check=depth_check)
     if interpolation == "bilinear":

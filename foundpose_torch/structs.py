@@ -11,13 +11,14 @@ from foundpose_torch import geometry
 
 
 def to_device(a, device) -> torch.Tensor:
-    """A host array, tensor or nested list on `device`. On the card the copy
-    goes through pinned memory with non_blocking=True, so it neither waits
-    for the queued device work nor blocks the host (a copy from pageable
-    memory synchronizes)."""
+    """A host array, tensor or nested list on `device`. A copy from the host
+    to the card goes through pinned memory with non_blocking=True, so it
+    neither waits for the queued device work nor blocks the host (a copy
+    from pageable memory synchronizes); a tensor already on a device moves
+    with `.to`."""
     t = torch.as_tensor(a)
     device = torch.device(device)
-    if device.type == "cuda":
+    if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
@@ -78,11 +79,13 @@ class PinholeCamera:
     # ---- batching -----------------------------------------------------------
 
     def to(self, device) -> "PinholeCamera":
+        """The camera on `device`; host tensors reach the card through
+        `to_device` (pinned, non-blocking)."""
         return dataclasses.replace(
             self,
-            f=self.f.to(device),
-            c=self.c.to(device),
-            T_world_from_eye=self.T_world_from_eye.to(device),
+            f=to_device(self.f, device),
+            c=to_device(self.c, device),
+            T_world_from_eye=to_device(self.T_world_from_eye, device),
         )
 
     def broadcast(self, n: int) -> "PinholeCamera":

@@ -125,6 +125,59 @@ def test_vit_block_kernel_swiglu_at_vitg_width(dev):
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
 
 
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("approx_gelu", [True, False])
+@pytest.mark.parametrize("tokens", [901, 905])
+def test_vit_block_kernel_at_vitl_width(dev, stabilizer, approx_gelu, tokens):
+    """ViT-L/14 widths (d 1024, 16 heads of 64, GELU hidden 4096: fc1's N
+    and fc2's K are 4096) at 2 crops of 901 tokens (lmo_vitl.json's model,
+    no registers) and 905: relative L2 <= 1e-2 on the output and on the
+    residual branches (out - x)."""
+    gen = torch.Generator().manual_seed(5)
+    d, hidden = 1024, 4096
+    p = block_weights(gen, d, hidden, dev)
+    x = torch.randn(2, tokens, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=16, head_dim=64, approx_gelu=approx_gelu, softmax_stabilizer=stabilizer)
+    got = fused_vit_block(x, p, **kw).float()
+    ref = fused_vit_block_plain(x, p, **kw).float()
+    xf = x.float()
+    for a, b in ((got, ref), (got - xf, ref - xf)):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
+
+
+def test_engine_estimate_makes_no_host_sync_before_its_fetch(dev):
+    """PoseEngine at configs/infer/lmo.json's switches (bf16, fused block,
+    tanh GELU, capped softmax, approximate top-k) with one LM-O-scale
+    object: one estimate() of 16 boxes up to its one device-to-host fetch
+    runs under the CUDA sync debug mode "error" (any host sync raises),
+    then the fetched rows are finite; the caller's sync debug mode is
+    restored after it."""
+    from foundpose_torch.benchmarks import bench, latency
+    from foundpose_torch.engine import PoseEngine
+    from foundpose_torch.synthetic import realistic_repre
+    from foundpose_torch.utils.profiling import no_host_sync
+
+    _, config = bench.bench_configs()
+    engine = PoseEngine(config=config, batch_size=16, extractor_overrides=bench.FAST_SWITCHES,
+                        device=dev)
+    engine.register_object(1, realistic_repre(0, dev))
+    image, boxes = latency.request(16)
+    engine.estimate(1, image, boxes, latency.K)  # warm
+    torch.cuda.synchronize()
+    before = fused_vit_block.launches
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with no_host_sync(dev):
+            crop_cams, packed = engine._dispatch(image, boxes, [None] * 16, latency.K,
+                                                 engine._object_step(1))
+        assert torch.cuda.get_sync_debug_mode() == 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused_vit_block.launches == before + 10
+    rows = packed[0][1].cpu().numpy()
+    assert rows.shape == (16, 16) and np.isfinite(rows).all()
+
+
 def test_buddies_kernel_matches_twin(dev):
     """Ragged Q and F (not multiples of the tiles): q2o equal on >= 99% of
     valid queries, cycle distances equal where q2o is."""

@@ -68,11 +68,13 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.parallel.launch", "foundpose_torch.models.dinov2",
     "foundpose_torch.models.weights", "foundpose_torch.models.bench_weights",
     "foundpose_torch.utils.flops", "foundpose_torch.utils.profiling",
-    "foundpose_torch.benchmarks.block_split",
+    "foundpose_torch.benchmarks.block_split", "foundpose_torch.benchmarks.bench",
+    "foundpose_torch.benchmarks.latency", "foundpose_torch.benchmarks.featuremetric_bench",
+    "foundpose_torch.benchmarks.sync_count",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
     """Each module of the serving, refinement, evaluation, CLI, builder,
-    multi-device and ViT-G slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    multi-device, ViT-G and bench slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
     blocked."""
     code = (
         "import sys, importlib\n"
