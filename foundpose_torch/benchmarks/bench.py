@@ -87,6 +87,10 @@ PEAK_BF16_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12}
 WARM_WINDOW, WARM_SETTLE, WARM_MAX_WINDOWS = 5, 0.05, 12
 N_ITERS, WINDOWS = 8, 3
 STAGES = ("vit", "retrieval", "buddies", "pnp_select")
+# The micro-benches' profiler windows: a solve substage's holds thousands of
+# launches, which torch.profiler takes seconds to parse, so 2 calls a
+# window, held open 0.2, 0.5 and 1 s after the synchronize on its tries.
+SUBSTAGE_CALLS, SUBSTAGE_PADS = 2, (0.2, 0.5, 1.0)
 
 
 def bench_configs(extractor: str = DEFAULT_EXTRACTOR, select_iter: int = 0,
@@ -238,6 +242,73 @@ def window_seconds(fn: Callable[[], Any], device, checksum: bool = False) -> flo
             raise RuntimeError("the step's outputs are not finite")
         best = min(best, secs)
     return best / N_ITERS
+
+
+def kernel_counters() -> Dict[str, Callable]:
+    """The port's kernel wrappers by kernel name; each counts its launches
+    in its `launches` attribute."""
+    from foundpose_torch.benchmarks import micro_int8
+    from foundpose_torch.ops.attention import fused_attention_bhtd
+    from foundpose_torch.ops.buddies_kernel import cycle_distances
+    from foundpose_torch.ops.vit_block import fused_vit_block
+    from foundpose_torch.pose import pnp
+
+    return {
+        "vit_block": fused_vit_block, "buddies": cycle_distances,
+        "ransac_score": pnp.score_hypotheses, "attention": fused_attention_bhtd,
+        "mm_bf16": micro_int8.mm_bf16, "mm_int8": micro_int8.mm_int8,
+    }
+
+
+def substage_times(fn: Callable[[], Any], device) -> Dict[str, Any]:
+    """The micro-benches' numbers for one substage `fn` on inputs made
+    once: `kernel_launches`, the port's kernel launches in its first call
+    (kernel_counters); after `settle`, `ms`, its time a call by
+    window_seconds (on the card, CUDA events around calls launched back to
+    back); on the card also `device_ms`, the time of its device kernels a
+    call, and `host_launches`, the host's kernel-launch calls a call, both
+    over SUBSTAGE_CALLS calls under torch.profiler
+    (block_split.profiled_kernels, one try a pad of SUBSTAGE_PADS), or
+    "not measured" when no try kept every kernel (`profiler_kept`: the
+    kernels kept and the launch calls recorded in the last try). The gap
+    between `ms` and `device_ms` is the time the card waits on the host.
+    On the CPU the two are None."""
+    from foundpose_torch.benchmarks import block_split
+
+    counters = kernel_counters()
+    before = {name: w.launches for name, w in counters.items()}
+    fn()
+    _sync(device)
+    launches = {name: w.launches - before[name] for name, w in counters.items()}
+    settle(fn, device)
+    out = dict(ms=window_seconds(fn, device) * 1e3, device_ms=None, host_launches=None,
+               kernel_launches=launches)
+    if device.type == "cuda":
+        try:
+            kernels, host_calls = block_split.profiled_kernels(fn, SUBSTAGE_CALLS,
+                                                               pads=SUBSTAGE_PADS)
+        except block_split.ProfilerLostKernels as e:
+            out.update(device_ms="not measured", host_launches="not measured",
+                       profiler_kept=[e.seen, e.want])
+        else:
+            n = SUBSTAGE_CALLS
+            out.update(device_ms=sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3,
+                       host_launches=host_calls / n, device_kernels=len(kernels) / n)
+    return out
+
+
+@torch.no_grad()
+def substage_report(subs: Dict[str, Callable[[], Any]], device, tag: str,
+                    batch: int) -> Dict[str, Dict[str, Any]]:
+    """substage_times of each of a micro-bench's substages (name ->
+    callable), one line each on stderr."""
+    device = torch.device(device)
+    out = {}
+    for name, fn in subs.items():
+        r = out[name] = substage_times(fn, device)
+        print(f"[{tag}] {name:22s} {r['ms']:8.3f} ms/batch-{batch}; device ms {r['device_ms']}, "
+              f"host launches {r['host_launches']}", file=sys.stderr)
+    return out
 
 
 def step_seconds(fn: Callable[[], Any], device):

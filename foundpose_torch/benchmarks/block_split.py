@@ -59,43 +59,64 @@ def cuda_ms(fn, reps=20, warm=3):
 
 class ProfilerLostKernels(RuntimeError):
     """torch.profiler kept fewer device kernels than the calls launched, on
-    every try: the split is not measured (never reported from a part)."""
+    every try: the figure is not measured (never reported from a part)."""
 
     def __init__(self, seen, want, names):
-        super().__init__(f"{seen} device kernels in {want // 7} block calls, want {want}: {names}")
+        super().__init__(f"{seen} device kernels kept, want {want}: {names}")
         self.seen, self.want = seen, want
 
 
-def launch_split(block, x, p, calls=5, pads=(0.5, 3.0, 3.0), **kw):
-    """Device ms of each of the seven kernels that one `block(x, p, **kw)`
-    call launches, in launch order, averaged over `calls` profiled calls.
+def is_launch_call(e) -> bool:
+    """A host-side runtime call that launches one device kernel."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CPU and e.name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel"))
+
+
+def profiled_kernels(fn, calls, want=None, pads=(0.5, 3.0, 3.0)):
+    """The device kernels (in launch order) and the host launch calls of
+    `calls` calls of `fn` under torch.profiler, after one unprofiled call.
 
     torch.profiler sometimes keeps only part of a window's device kernels:
     late in a long process 10 and 13 of 35 in a ViT-G window that closed at
     the synchronize, and 20 of 35 (ViT-L, batch 16) or 33 of 35 (ViT-L,
     batch 128, in a process of its own) on every try of a window held open
     after it. So each try, one profiler session, holds its window open
-    `pads[i]` seconds after the synchronize, and if no try keeps every
-    kernel, ProfilerLostKernels is raised."""
+    `pads[i]` seconds after the synchronize, and counts as whole when it
+    kept `want` kernels or, without `want`, at least one for each host
+    launch call it recorded (a launch the runtime tracing misses adds a
+    kernel without a call); if no try is whole, ProfilerLostKernels is
+    raised."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = LAUNCHES[_variant(p)]
-    block(x, p, **kw)
+    fn()
     torch.cuda.synchronize()
     for pad in pads:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                block(x, p, **kw)
+                fn()
             torch.cuda.synchronize()
             time.sleep(pad)
-        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        events = prof.events()
+        kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))),
                          key=lambda e: e.time_range.start)
-        if len(kernels) == calls * len(names):
-            break
-    else:
-        raise ProfilerLostKernels(len(kernels), calls * len(names),
-                                  sorted({e.name[:60] for e in kernels}))
+        launches = sum(1 for e in events if is_launch_call(e))
+        if len(kernels) == want if want is not None else len(kernels) >= launches:
+            return kernels, launches
+    raise ProfilerLostKernels(len(kernels), launches if want is None else want,
+                              sorted({e.name[:60] for e in kernels}))
+
+
+def launch_split(block, x, p, calls=5, pads=(0.5, 3.0, 3.0), **kw):
+    """Device ms of each of the seven kernels that one `block(x, p, **kw)`
+    call launches, in launch order, averaged over `calls` profiled calls
+    (`profiled_kernels`, which raises ProfilerLostKernels unless a try kept
+    every kernel)."""
+    names = LAUNCHES[_variant(p)]
+    kernels, _ = profiled_kernels(lambda: block(x, p, **kw), calls, calls * len(names), pads)
     rows = []
     for i, launch in enumerate(names):
         evs = kernels[i::len(names)]

@@ -88,7 +88,8 @@ def device_ms(fn, calls=20, kernel="score_kernel", sessions=3):
     at most `sessions` times in all. If none keeps every record, the mean is
     taken over the records of the session that kept most, when that is at
     least half of the launches (each record is one whole launch's time), and
-    the loss is noted on stderr; with fewer, it raises."""
+    the loss is noted on stderr; with fewer, it raises
+    block_split.ProfilerLostKernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,8 +110,9 @@ def device_ms(fn, calls=20, kernel="score_kernel", sessions=3):
             break
     else:
         if 2 * len(best) < calls:
-            raise RuntimeError(f"{len(best)} {kernel} launches in {calls} calls; device events: "
-                               f"{sorted(seen)}")
+            from foundpose_torch.benchmarks.block_split import ProfilerLostKernels
+
+            raise ProfilerLostKernels(len(best), calls, sorted(seen))
         print(f"device_ms: torch.profiler kept {len(best)} of {calls} {kernel} launches at best "
               f"in {sessions} sessions; the mean is over those", file=sys.stderr)
     return sum(e.time_range.elapsed_us() for e in best) / len(best) / 1e3

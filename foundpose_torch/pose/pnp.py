@@ -265,6 +265,21 @@ class PnPResult:
     quality: torch.Tensor  # [S] inlier count
 
 
+def sample_counts(valid: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+    """The multiplicity [S, H, N] of each point in each hypothesis's
+    minimal sample: draws [S, H, 6] raw integers, each taken modulo the
+    set's valid count, pick the valid point of that rank (valid [S, N])."""
+    validi = valid.int()
+    rank = torch.cumsum(validi, dim=-1) - validi
+    count = torch.clamp_min(torch.sum(validi, dim=-1), 1)  # [S]
+    u = draws.to(valid.device).long() % count[:, None, None]
+    rank_valid = torch.where(valid, rank, -1)[:, None, :]  # [S, 1, N]
+    counts = torch.zeros(*draws.shape[:2], valid.shape[1], device=valid.device)
+    for j in range(6):
+        counts = counts + (u[..., j : j + 1] == rank_valid).float()
+    return counts
+
+
 def ransac_pnp(
     coord_2d: torch.Tensor,
     coord_3d: torch.Tensor,
@@ -295,16 +310,9 @@ def ransac_pnp(
     k_c = k_c.float()
     rays = (pts2d - k_c[:, None]) / k_f[:, None]
 
-    validi = valid.int()
-    rank = torch.cumsum(validi, dim=-1) - validi
-    count = torch.clamp_min(torch.sum(validi, dim=-1), 1)  # [S]
     if draws is None:
         draws = torch.randint(0, n, (s_, h, 6), generator=generator, device=pts2d.device)
-    u = draws.to(pts2d.device).long() % count[:, None, None]
-    rank_valid = torch.where(valid, rank, -1)[:, None, :]  # [S, 1, N]
-    counts = torch.zeros(s_, h, n, device=pts2d.device)
-    for j in range(6):
-        counts = counts + (u[..., j : j + 1] == rank_valid).float()
+    counts = sample_counts(valid, draws)
 
     rs, ts = _dlt_pose_many(pts3d, rays, validf, counts)
     finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)

@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 60
+    assert int(proc.stdout.strip()) >= 66
 
 
 @pytest.mark.parametrize("module", [
@@ -70,11 +70,14 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.utils.flops", "foundpose_torch.utils.profiling",
     "foundpose_torch.benchmarks.block_split", "foundpose_torch.benchmarks.bench",
     "foundpose_torch.benchmarks.latency", "foundpose_torch.benchmarks.featuremetric_bench",
-    "foundpose_torch.benchmarks.sync_count",
+    "foundpose_torch.benchmarks.sync_count", "foundpose_torch.benchmarks.micro_pnp",
+    "foundpose_torch.benchmarks.micro_buddies", "foundpose_torch.benchmarks.micro_retrieval",
+    "foundpose_torch.benchmarks.vit_stage_bench", "foundpose_torch.benchmarks.cli_throughput",
+    "foundpose_torch.benchmarks.builder_full_scale",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
     """Each module of the serving, refinement, evaluation, CLI, builder,
-    multi-device, ViT-G and bench slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
+    multi-device, ViT-G, bench and measurement slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
     blocked."""
     code = (
         "import sys, importlib\n"

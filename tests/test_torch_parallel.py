@@ -15,9 +15,11 @@ features keep each crop's retrieval scores well apart.
 """
 
 import dataclasses
+import datetime
 import os
 import pickle
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -422,3 +424,22 @@ def test_ranks_hold_their_mesh_coordinates(ranks):
     assert [(r["coords"]["data"], r["coords"]["bank"]) for r in out] == [
         (0, 0), (0, 1), (1, 0), (1, 1)]
     assert not any(r["jax_loaded"] for r in out)
+
+
+def _stuck_rank(rank, world):
+    """Rank 0 all-reduces; rank 1 never joins it."""
+    if rank == 0:
+        torch.distributed.all_reduce(torch.zeros(1))
+    else:
+        time.sleep(120)
+
+
+def test_launch_deadline_stops_a_stuck_collective():
+    """A collective that a rank never joins fails its rank at launch.run's
+    deadline (here 3 s), and run raises then, instead of waiting for
+    gloo's own 30 minutes."""
+    t0 = time.perf_counter()
+    with pytest.raises(Exception, match="(?i)timed out|timeout"):
+        launch.run(_stuck_rank, 2, timeout=datetime.timedelta(seconds=3))
+    assert time.perf_counter() - t0 < 60
+    assert launch.DEFAULT_TIMEOUT == datetime.timedelta(seconds=300)
