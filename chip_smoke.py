@@ -201,6 +201,29 @@ Phases (each prints one line and raises on failure):
      vit_stage_bench at batch 64 (block 10 launches a call) and
      cli_throughput on 8 images (its split, gen_templates and gen_repre
      build, two infer passes at batch 64): every key, every time finite.
+  17 (after phase 16, before phase 12 (e) and phase 11) the cross-parity
+     oracle and the solve sweeps (foundpose_torch/benchmarks/cross_parity,
+     ransac_sweep, lm_iters_sweep, select_iter_sweep) at the JAX scripts'
+     defaults. (d) first: kernels 3 and 2 against their twins (phase 2's
+     gates) on the operands one fast-leg call passes them on (a)'s world
+     and queries, the scorer at 400 and at 100 hypotheses, each call's
+     launches counted from zero (buddies 1, scorer 1). (a) run_parity:
+     798 templates of 400 features, 256 dims, 2,048 words, 4,000 points, 100
+     crops, top-5 / 300 buddies / 400 hypotheses; the host replica (numpy
+     kNN, cv2 RANSAC and LM) against the port's exact f32 and fast bf16
+     legs on the card: AR deltas <= 0.01, idf max |delta| < 1e-5,
+     descriptor cosine > 0.999; the replica's seconds a crop, each leg's
+     wall, launches from zero (exact: scorer 1; fast: buddies 1, scorer 1).
+     (b) featuremetric_leg at 100 crops: refinement off vs on, the rules of
+     tests/test_cross_parity.py (>= 20 coarse successes, recall within one
+     crop, median rotation and translation errors not worse). (c) the three
+     sweeps at their JAX defaults but for the crops, cut from 200 to
+     SWEEP_CROPS = 100 (ransac at 798 templates, 6 cells; lm and select on
+     2 seeds of 96 templates, 4 cells each; select's oracle comes from the
+     harness's memo of lm's: both score the same worlds): each one's JSON
+     line, every cell's AR, wall ms and
+     launches (buddies 1, scorer 1, or 2 for a two-phase cell); every AR
+     finite, each oracle AR >= 0.9; the pick is reported, not gated.
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -275,6 +298,13 @@ TIMED_REQUESTS = 30
 CLI_LIDS = (1, 5)
 LMO_DIAMETERS = {1: 102.09865663, 5: 201.40358597}
 CLI_IMAGES, CLI_DETS = 12, 8
+# Phases 4 and 8's structured worlds (cross_parity.make_world's sizes):
+# tests/test_pipeline.py's, with as many visual words as points, and
+# tests/test_cross_parity.py's featuremetric world.
+PHASE4_WORLD = dict(num_templates=8, pts_per_template=64, feat_dim=32, num_words=200,
+                    n_points=200)
+PHASE8_WORLD = dict(num_templates=24, pts_per_template=120, feat_dim=48, num_words=256,
+                    n_points=800)
 # The shares of the other crops' cells in each template of the card-vs-CPU
 # world (crop_world_repre's `mix`).
 CMP_MIX = (0.9, 0.5, 0.1)
@@ -838,39 +868,6 @@ def profile_call(torch, fn, phase, table_name, what="one request"):
     return res
 
 
-def make_world(torch, rng, num_templates=8, pts_per_template=64, feat_dim=32, n_points=200,
-               num_words=None):
-    """The structured world of tests/test_pipeline.py: a point cloud whose
-    points carry unique descriptors, templates seeing subsets of it (and as
-    many visual words as points unless `num_words` is given)."""
-    from foundpose_torch.ops import tfidf
-    from foundpose_torch.repre import make_repre
-    from foundpose_torch.structs import PinholeCamera
-
-    obj_points = rng.uniform(-0.08, 0.08, size=(n_points, 3)).astype(np.float32)
-    obj_feats = rng.normal(size=(n_points, feat_dim)).astype(np.float32) * 3.0
-    tpl_point_ids = [rng.choice(n_points, size=pts_per_template, replace=False)
-                     for _ in range(num_templates)]
-    feat_vectors = np.concatenate([obj_feats[s] for s in tpl_point_ids])
-    vertices = np.concatenate([obj_points[s] for s in tpl_point_ids])
-    tpl_ids = np.repeat(np.arange(num_templates), pts_per_template).astype(np.int32)
-    words = obj_feats[rng.choice(n_points, size=num_words or n_points, replace=False)]
-    words = (words + 0.01 * rng.normal(size=words.shape)).astype(np.float32)
-    cfg = tfidf.TfidfConfig(knn_k=3)
-    descs, idfs = tfidf.calc_template_tfidf_descriptors(
-        torch.as_tensor(feat_vectors), torch.as_tensor(tpl_ids), torch.as_tensor(words),
-        num_templates, cfg,
-    )
-    cams = PinholeCamera(
-        f=torch.full((num_templates, 2), 600.0), c=torch.full((num_templates, 2), 209.5),
-        T_world_from_eye=torch.eye(4).expand(num_templates, 4, 4).contiguous(),
-        width=420, height=420,
-    )
-    repre = make_repre(feat_vectors, vertices, tpl_ids, words, idfs.numpy(), descs.numpy(),
-                       cams, tfidf_config=cfg, device="cpu")
-    return repre, obj_points, obj_feats, tpl_point_ids
-
-
 def render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, target, r_gt, t_gt):
     """Feature map + mask of a crop seeing template `target` under (r_gt, t_gt)."""
     pts = obj_points[tpl_point_ids[target]]
@@ -887,54 +884,17 @@ def render_query(torch, rng, obj_points, obj_feats, tpl_point_ids, target, r_gt,
     return fmap, mask
 
 
-def render_query_smooth(rng, obj_points, obj_feats, tpl_point_ids, target, pose_seed,
-                        feat_noise=0.1):
-    """A crop whose feature map carries sub-cell position signal (the port's
-    copy of benchmarks/cross_parity.render_query_smooth): each point's
-    descriptor, with noise, is splatted bilinearly into the 4 cells around
-    its true projection (pixel p -> map coordinate p / 14 - 0.5), under a
-    random pose from `pose_seed`. Returns (fmap [30, 30, D], mask, R, t)."""
-    from scipy.spatial.transform import Rotation
-
-    pr = np.random.default_rng(pose_seed)
-    r_gt = Rotation.from_rotvec(pr.uniform(-0.3, 0.3, 3)).as_matrix().astype(np.float32)
-    t_gt = np.array([pr.uniform(-0.02, 0.02), pr.uniform(-0.02, 0.02), pr.uniform(0.45, 0.6)],
-                    dtype=np.float32)
-    pts = obj_points[tpl_point_ids[target]]
-    feats = obj_feats[tpl_point_ids[target]]
-    cam = pts @ r_gt.T + t_gt
-    proj = cam[:, :2] / cam[:, 2:3] * 600.0 + 209.5
-    d = obj_feats.shape[1]
-    acc = np.zeros((30, 30, d))
-    wsum = np.zeros((30, 30))
-    for p, f in zip(proj, feats):
-        fn = f + feat_noise * rng.normal(size=d)
-        u, v = p[0] / 14.0 - 0.5, p[1] / 14.0 - 0.5
-        x0, y0 = int(np.floor(u)), int(np.floor(v))
-        fx, fy = u - x0, v - y0
-        for xi, yi, w in ((x0, y0, (1 - fx) * (1 - fy)), (x0 + 1, y0, fx * (1 - fy)),
-                          (x0, y0 + 1, (1 - fx) * fy), (x0 + 1, y0 + 1, fx * fy)):
-            if 0 <= xi < 30 and 0 <= yi < 30:
-                acc[yi, xi] += w * fn
-                wsum[yi, xi] += w
-    fmap = rng.normal(size=(30, 30, d)).astype(np.float32) * 0.05
-    mask = np.zeros((420, 420), dtype=np.float32)
-    covered = wsum > 0.05
-    fmap[covered] = (acc[covered] / wsum[covered, None]).astype(np.float32)
-    for cy, cx in zip(*np.nonzero(covered)):
-        mask[cy * 14 : (cy + 1) * 14, cx * 14 : (cx + 1) * 14] = 1.0
-    return fmap, mask, r_gt, t_gt
-
-
 def phase_world(torch, base_config, device):
     """The structured world under `base_config`'s dtype and top-k path,
     with 3 templates, 60 buddies and 200 hypotheses."""
     from foundpose_torch import geometry
+    from foundpose_torch.benchmarks import cross_parity
     from foundpose_torch.pipeline import inference
     from foundpose_torch.structs import PinholeCamera
 
     rng = np.random.default_rng(0)
-    repre, obj_points, obj_feats, tpl_point_ids = make_world(torch, rng)
+    repre, obj_points, obj_feats, tpl_point_ids = cross_parity.make_world(
+        rng, device="cpu", **PHASE4_WORLD)
     r_gt = geometry.rodrigues(torch.tensor([0.1, -0.2, 0.15])).numpy()
     t_gt = np.array([0.0, 0.0, 0.5], np.float32)
     targets = [2, 5, 0, 7]
@@ -1038,17 +998,17 @@ def phase_world_refine(torch, config, device):
     object at random poses, the same draws on the card with refinement on
     and off and on the CPU with it on."""
     from foundpose_torch import geometry
+    from foundpose_torch.benchmarks import cross_parity
     from foundpose_torch.eval import bop_ar
     from foundpose_torch.pipeline import inference
     from foundpose_torch.structs import PinholeCamera
 
     rng = np.random.default_rng(0)
-    n_tpl, b = 24, 30
-    repre, obj_points, obj_feats, tpl_point_ids = make_world(
-        torch, rng, num_templates=n_tpl, pts_per_template=120, feat_dim=48, n_points=800,
-        num_words=256)
-    fm, mk, rs_gt, ts_gt = zip(*(render_query_smooth(rng, obj_points, obj_feats, tpl_point_ids,
-                                                     i % n_tpl, 2000 + i) for i in range(b)))
+    n_tpl, b = PHASE8_WORLD["num_templates"], 30
+    repre, obj_points, obj_feats, tpl_point_ids = cross_parity.make_world(
+        rng, device="cpu", **PHASE8_WORLD)
+    fm, mk, rs_gt, ts_gt = zip(*(cross_parity.render_query_smooth(
+        rng, obj_points, obj_feats, tpl_point_ids, i % n_tpl, 2000 + i) for i in range(b)))
     draws = torch.as_tensor(rng.integers(
         0, config.top_k_buddies, size=(b, config.top_n_templates, config.pnp_ransac_iter, 6)))
     cams = PinholeCamera(
@@ -3348,6 +3308,146 @@ def phase_micro(torch):
     return res
 
 
+# Phase 17: the JAX scripts' defaults (benchmarks/cross_parity.py,
+# ransac_sweep.py, lm_iters_sweep.py, select_iter_sweep.py).
+PARITY_CROPS = 100
+# The sweeps' crops, cut from the JAX scripts' 200 to hold the smoke's
+# time: the replica takes ~0.33 s a crop on the card machine's host (cv2
+# 4.13's solvePnPRansac, ~196 ms a call alone), where the JAX scripts'
+# host took 0.116 s. select_iter_sweep's oracle is the harness's memo of
+# lm_iters_sweep's: both sweeps score the same two worlds.
+SWEEP_CROPS = 100
+# tests/test_cross_parity.py's offline gates.
+PARITY_IDF_ATOL, PARITY_DESC_COS = 1e-5, 0.999
+ORACLE_AR_MIN = 0.9
+
+
+def sweep_cells(report):
+    """(cell, seed, AR, wall ms, launches) of every cell of a sweep report
+    (ransac_sweep's one seed, or the harness's list per seed)."""
+    for cell, ars in report["cells"].items():
+        walls, launches = report["cell_wall_ms"][cell], report["cell_launches"][cell]
+        if not isinstance(ars, list):
+            ars, walls, launches = [ars], [walls], [launches]
+        for seed, (ar, wall, n) in enumerate(zip(ars, walls, launches)):
+            yield cell, seed, ar, wall, n
+
+
+def phase_parity(torch, device):
+    """The cross-parity oracle and the solve sweeps on the card (see the
+    module docstring)."""
+    from foundpose_torch.benchmarks import (cross_parity, lm_iters_sweep, ransac_sweep,
+                                            select_iter_sweep)
+    from foundpose_torch.pipeline import inference
+
+    started = time.perf_counter()
+    res = {}
+    # (d) Kernels 3 and 2 on the operands one fast-leg call passes them, on
+    # (a)'s world and queries, at (a)'s 400 hypotheses and at 100.
+    rng = np.random.default_rng(0)
+    world = cross_parity.make_world(rng, device=device)
+    fmaps, masks, _, _ = cross_parity.render_queries(rng, world, PARITY_CROPS, 1000)
+    fast = inference.InferenceConfig(top_n_templates=5, top_k_buddies=300, pnp_ransac_iter=400,
+                                     compute_dtype=torch.bfloat16, approx_topk=True)
+    kern = {}
+    for h in (400, 100):
+        cfg = dataclasses.replace(fast, pnp_ransac_iter=h)
+        torch.cuda.synchronize()
+        reset_counts()
+        ops = captured_operands(lambda: cross_parity.port_poses(fmaps, masks, world[0], cfg, device))
+        launches = read_counts()
+        check_launches(launches, dict(buddies=1, ransac_score=1),
+                       f"cross-parity fast-leg call at H {h}")
+        if h == 400:
+            kern["buddies"] = dict(buddies_vs_twin(torch, *ops["buddies"], 17),
+                                   launches=launches["buddies"])
+        kern[f"ransac_score_h{h}"] = dict(scorer_check(
+            torch, *ops["ransac_score"], 17, f"(cross-parity fast leg's operands, H {h})"),
+            launches=launches["ransac_score"])
+        del ops
+    del world, fmaps, masks
+    res["kernels"] = kern
+
+    # (a) run_parity at the JAX script's defaults.
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = cross_parity.run_parity(n_crops=PARITY_CROPS, device=device, verbose=False)
+    torch.cuda.synchronize()
+    rep.update(launches=read_counts(), seconds=time.perf_counter() - t0)
+    res["parity"] = rep
+    log(17, "cross_parity " + json.dumps({k: v for k, v in rep.items() if k != "launches"}))
+    log(17, f"cross_parity ({rep['num_templates']} templates, {rep['n_crops']} crops): AR replica "
+            f"{rep['ar_replica']:.3f}, port exact {rep['ar_port_exact']:.3f} / fast "
+            f"{rep['ar_port_fast']:.3f} (deltas {rep['ar_delta_exact']} / {rep['ar_delta_fast']}, "
+            f"tol 0.01); idf max|delta| {rep['idf_max_delta']:.2e} (tol {PARITY_IDF_ATOL}), desc "
+            f"cosine min {rep['template_desc_cosine_min']:.7f} (tol {PARITY_DESC_COS}); replica "
+            f"{rep['replica_sec_per_crop']} s a crop, offline tf-idf {rep['replica_offline_tfidf_s']} "
+            f"s; port wall exact {rep['port_wall_s_exact'] * 1e3:.1f} / fast "
+            f"{rep['port_wall_s_fast'] * 1e3:.1f} ms; launches from zero exact "
+            f"{rep['launches_exact']}, fast {rep['launches_fast']}, whole run {rep['launches']}; "
+            f"{rep['seconds']:.1f} s")
+    check(not cross_parity.ar_gate_failed(rep), "cross_parity: an AR delta exceeds 1 point")
+    check(rep["idf_max_delta"] < PARITY_IDF_ATOL and rep["template_desc_cosine_min"] > PARITY_DESC_COS,
+          "cross_parity: the offline tf-idf disagrees with the replica's")
+    check(rep["launches_exact"] == {"buddies": 0, "ransac_score": 1}
+          and rep["launches_fast"] == {"buddies": 1, "ransac_score": 1},
+          f"cross_parity legs launched {rep['launches_exact']} / {rep['launches_fast']}")
+    check_launches(rep["launches"], dict(buddies=1, ransac_score=2), "cross_parity run_parity")
+
+    # (b) featuremetric_leg at 100 crops: tests/test_cross_parity.py's rules.
+    reset_counts()
+    t0 = time.perf_counter()
+    fm = cross_parity.featuremetric_leg(n_crops=PARITY_CROPS, device=device, verbose=False)
+    torch.cuda.synchronize()
+    fm.update(launches=read_counts(), seconds=time.perf_counter() - t0)
+    res["featuremetric"] = fm
+    log(17, f"featuremetric_leg ({fm['n_crops']} crops, {fm['num_templates']} templates, exact "
+            f"f32): off -> on recall {fm['recall_off']:.3f} -> {fm['recall_on']:.3f}, median rot "
+            f"{fm['median_rot_err_deg_off']} -> {fm['median_rot_err_deg_on']} deg, t "
+            f"{fm['median_t_err_mm_off']} -> {fm['median_t_err_mm_on']} mm, BOP AR "
+            f"{fm['bop_ar_off']} -> {fm['bop_ar_on']}, successes {fm['n_success_off']} -> "
+            f"{fm['n_success_on']}; wall {fm['port_wall_s_off'] * 1e3:.1f} / "
+            f"{fm['port_wall_s_on'] * 1e3:.1f} ms; launches {fm['launches']}; {fm['seconds']:.1f} s")
+    check(fm["n_success_off"] >= 20 and fm["recall_on"] >= fm["recall_off"] - 1.0 / fm["n_crops"]
+          and fm["median_rot_err_deg_on"] <= fm["median_rot_err_deg_off"]
+          and fm["median_t_err_mm_on"] <= fm["median_t_err_mm_off"],
+          "featuremetric refinement did not improve the poses")
+    check_launches(fm["launches"], dict(ransac_score=2), "featuremetric_leg")
+
+    # (c) The three sweeps at their JAX defaults but for the crops
+    # (SWEEP_CROPS); `picked` is a finding.
+    for name, mod in (("ransac_sweep", ransac_sweep), ("lm_iters_sweep", lm_iters_sweep),
+                      ("select_iter_sweep", select_iter_sweep)):
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = mod.run(crops=SWEEP_CROPS, device=device)
+        torch.cuda.synchronize()
+        launches, seconds = read_counts(), time.perf_counter() - t0
+        log(17, f"{name} " + json.dumps(rep))
+        cells = list(sweep_cells(rep))
+        log(17, f"{name}: " + "; ".join(f"{c} seed {sd} AR {ar:.3f} {wall:.1f} ms {n}"
+                                        for c, sd, ar, wall, n in cells)
+                + f"; oracle {rep['ar_replica_oracle']}, replica {rep['replica_sec_per_crop']} s a "
+                  f"crop; picked {rep['picked']}; launches over the sweep {launches}; "
+                  f"{seconds:.1f} s")
+        oracle = rep["ar_replica_oracle"]
+        check(all(np.isfinite(ar) for _, _, ar, _, _ in cells)
+              and min(oracle if isinstance(oracle, list) else [oracle]) >= ORACLE_AR_MIN,
+              f"{name}: an AR is not finite or the oracle AR is below {ORACLE_AR_MIN}")
+        expect = {"buddies": 0, "ransac_score": 0}
+        for cell, _, _, _, n in cells:
+            want = {"buddies": 1,
+                    "ransac_score": 2 if cell.startswith("select") and cell != "select0" else 1}
+            check(n == want, f"{name} {cell} launched {n}, expected {want}")
+            expect = {k: expect[k] + want[k] for k in want}
+        check_launches(launches, expect, name)
+        res[name] = dict(rep, launches=launches, seconds=seconds)
+    res["seconds"] = time.perf_counter() - started
+    log(17, f"phase 17 took {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     import torch
 
@@ -3415,6 +3515,7 @@ def main():
     report["bench"] = phase_bench(torch)
     report["datasets"] = phase_datasets(torch, params, vit_cfg, device)
     report["micro"] = phase_micro(torch)
+    report["parity"] = phase_parity(torch, device)
     report["vitg"]["tp"] = vitg_tp(torch, vitg_tp_state, device)
     del vitg_tp_state
     report["mesh"] = phase_mesh(torch, params, vit_cfg, device)
@@ -3467,7 +3568,13 @@ def main():
                    "ransac_full(+lm)"]["kernel_launches"],
                "micro_buddies real_match_batch, one call": report["micro"]["micro_buddies"][
                    "substages"]["real_match_batch"]["kernel_launches"],
-               "vit_stage_bench b64, one call": report["micro"]["vit_stage_bench"]["launches"]}
+               "vit_stage_bench b64, one call": report["micro"]["vit_stage_bench"]["launches"],
+               "cross_parity run_parity, exact + fast legs":
+                   report["parity"]["parity"]["launches"],
+               "cross_parity featuremetric_leg, off + on":
+                   report["parity"]["featuremetric"]["launches"],
+               **{f"{sw} (every cell)": report["parity"][sw]["launches"]
+                  for sw in ("ransac_sweep", "lm_iters_sweep", "select_iter_sweep")}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3483,6 +3590,12 @@ def main():
         if "lmo_exact" in k:  # the scorer at lmo_exact.json's 400 hypotheses (lmo.json above)
             entry["lmo_exact"] = {key: k["lmo_exact"][key] for key in keys}
             entry["lmo_exact"]["launches"] = report["serving"]["launches"]["ransac_score"]
+        # Kernels 3 and 2 on the operands of one cross-parity fast-leg call
+        # (phase 17 (d)), with that call's launches counted from zero.
+        for label, k17 in report["parity"]["kernels"].items():
+            if label.startswith(name):
+                entry[f"cross_parity{label[len(name):]}"] = {
+                    key: k17[key] for key in keys + ("launches",)}
         if name == "vit_block":  # the SwiGLU body at ViT-G/14 (phase 12; GELU above)
             g = report["vitg"]["kernel"]
             entry["swiglu"] = {key: g[key] for key in keys}

@@ -399,11 +399,13 @@ def pose_from_features(
     config: InferenceConfig,
     generator: Optional[torch.Generator] = None,
     draws: Optional[torch.Tensor] = None,
+    full_draws: Optional[torch.Tensor] = None,
 ) -> PoseOutputs:
     """Retrieval + matching + PnP for a batch of crop feature maps.
 
     feature_maps [B, Hf, Wf, D_raw]; masks [B, H, W] in crop space; cameras
-    batched crop cameras; draws optional [B, top_n, H, 6].
+    batched crop cameras; draws optional [B, top_n, H, 6]; full_draws
+    optional [B, H, 6], the two-phase solve's second pass (solve_batch).
     """
     feats_b, valid_b, tids_b, tscores_b = retrieve_batch(
         feature_maps, masks, repre, config, generator
@@ -411,7 +413,7 @@ def pose_from_features(
     cors_b = match_batch(feats_b, valid_b, tids_b, tscores_b, repre, config)
     return solve_batch(
         feature_maps, valid_b, tids_b, tscores_b, cors_b, cameras, repre, config, draws,
-        generator,
+        generator, full_draws=full_draws,
     )
 
 

@@ -1,12 +1,16 @@
 """Software rasterizer: ctypes binding to the native C++ z-buffer renderer
-(counterpart of foundpose_tpu/renderer/rasterizer.py: the same library,
-native/librasterizer.so, built from native/ at first use; cameras are the
+(counterpart of foundpose_tpu/renderer/rasterizer.py; cameras are the
 port's PinholeCamera, read on the host).
 
 Replaces the reference's pyrender/OpenGL offscreen rasterizer
 (reference: utils/renderer.py:30-336). Template rendering is offline, so it
-runs on CPU in native code (native/rasterizer.cpp); a vectorized numpy
-fallback keeps the stage functional when the shared library isn't built.
+runs on CPU in native code. The port builds its own library from
+native/rasterizer.cpp into foundpose_torch/_build/ at first use (never the
+JAX package's native/librasterizer.so, which its tests delete and rebuild).
+A build or load that fails raises with the compiler's or the loader's
+message; only a machine with no C++ compiler and no built library renders
+with the vectorized numpy version (~47x slower: 41 vs 1932 ms per 1680x1680
+template render), and it warns when it does.
 
 Conventions match the reference: cameras are given as camera->world
 (c2w); meshes are registered in model space in millimeters; masks are
@@ -16,7 +20,12 @@ depth > 0 (reference: utils/renderer.py:271-296).
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,76 +36,88 @@ from foundpose_torch.data.ply import Mesh
 from foundpose_torch.renderer.base import RendererBase, RenderType
 from foundpose_torch.structs import PinholeCamera
 
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native", "librasterizer.so"),
-    os.path.join(os.path.dirname(__file__), "librasterizer.so"),
-]
+_SOURCE = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native", "rasterizer.cpp")
+)
+BUILD_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "_build"))
+# native/Makefile's flags, so both packages' libraries render alike.
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
-def _build_native() -> None:
-    """Best-effort one-shot `make -C native` (the library is ~47x faster
-    than the numpy fallback — 41 vs 1932 ms per 1680x1680 template render —
-    so a silent fallback would quietly dominate gen_templates wall time).
+def _compiler() -> Optional[str]:
+    return shutil.which(os.environ.get("CXX", "g++"))
 
-    Serialized across processes with an flock'd lock file so concurrent
-    first renders (pytest workers, multi-process pipelines) don't race the
-    same build directory; whoever loses the race finds the .so already
-    built and make is a no-op."""
-    import subprocess
 
-    native_dir = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", "..", "native")
-    )
-    if not os.path.exists(os.path.join(native_dir, "Makefile")):
-        return
+def library_path() -> str:
+    """Where the port's library lives: BUILD_DIR, named by a hash of the
+    source and the flags, so a changed source builds a new library."""
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CXXFLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"librasterizer_{digest}.so")
+
+
+def _bind(path: str):
+    lib = ctypes.CDLL(path)
+    lib.rasterize_mesh.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.rasterize_mesh.restype = None
+    return lib
+
+
+def _load_native():
+    """The loaded library, built first when it is missing or not a whole
+    library (a file cut short by an interrupted copy). The build runs under
+    an flock, compiles to a temporary name and renames it into place, so
+    concurrent processes never load a partial file. Returns None only when
+    there is neither a library nor a compiler; raises when a build or a
+    load fails."""
+    path = library_path()
     try:
-        import fcntl
-
-        with open(os.path.join(native_dir, ".build.lock"), "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            subprocess.run(
-                ["make", "-C", native_dir],
-                check=True,
-                capture_output=True,
-                timeout=120,
+        return _bind(path)
+    except OSError:
+        pass  # missing or unloadable: (re)build it below
+    cxx = _compiler()
+    if cxx is None:
+        if os.path.exists(path):
+            return _bind(path)  # raises with the loader's message
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "rasterizer.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _bind(path)  # another process built it while this one waited
+        except OSError:
+            pass
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [cxx, *CXXFLAGS, "-o", tmp, _SOURCE]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(
+                f"building the rasterizer failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}"
             )
-    except Exception:
-        pass  # no compiler / read-only checkout: numpy fallback stays
-
-
-def _load_native(build: bool = True):
-    for attempt in range(2):
-        for path in _LIB_PATHS:
-            path = os.path.abspath(path)
-            if not os.path.exists(path):
-                continue
-            lib = ctypes.CDLL(path)
-            lib.rasterize_mesh.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float,
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_uint8),
-            ]
-            lib.rasterize_mesh.restype = None
-            return lib
-        if not build or attempt == 1:
-            break
-        _build_native()
-    return None
+        os.replace(tmp, path)
+    return _bind(path)
 
 
 # Loaded (and if necessary built) lazily on the first rasterize() call, NOT
-# at import time: unrelated importers must not pay the build latency, and
-# laziness plus the flock in _build_native keeps concurrent importers safe.
-# `None` after a load attempt means "use the numpy fallback" (tests force the
-# fallback by setting BOTH `_NATIVE = None` and `_NATIVE_TRIED = True`;
-# `_NATIVE = None` alone would just make _get_native retry the load).
+# at import time: unrelated importers must not pay the build latency.
+# `_NATIVE_TRIED` is set only once a load has succeeded or found neither a
+# library nor a compiler; a call that raised leaves it unset, so the next
+# call tries again. Tests force the numpy version by setting BOTH
+# `_NATIVE = None` and `_NATIVE_TRIED = True`.
 _NATIVE = None
 _NATIVE_TRIED = False
 
@@ -104,8 +125,13 @@ _NATIVE_TRIED = False
 def _get_native():
     global _NATIVE, _NATIVE_TRIED
     if _NATIVE is None and not _NATIVE_TRIED:
-        _NATIVE_TRIED = True
         _NATIVE = _load_native()
+        _NATIVE_TRIED = True
+        if _NATIVE is None:
+            warnings.warn(
+                "no C++ compiler and no built rasterizer library: rendering with the "
+                "numpy version (~47x slower)", RuntimeWarning, stacklevel=2,
+            )
     return _NATIVE
 
 

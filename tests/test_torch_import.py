@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX import anywhere in its package;
-PIL, tabulate and cv2 imported only where an image is read or drawn or a
-table written, so every module imports without them; and chip_smoke.py
-refuses to run without a GPU."""
+PIL, tabulate and cv2 imported only where an image is read or drawn, a
+table written or the cross-parity replica solves, and sklearn nowhere, so
+every module imports without them; and chip_smoke.py refuses to run
+without a GPU."""
 
 import json
 import os
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundpose_torch")
-BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate", "cv2")
+BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate", "cv2", "sklearn")
 
 
 def _sources():
@@ -74,11 +75,15 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.benchmarks.micro_buddies", "foundpose_torch.benchmarks.micro_retrieval",
     "foundpose_torch.benchmarks.vit_stage_bench", "foundpose_torch.benchmarks.cli_throughput",
     "foundpose_torch.benchmarks.builder_full_scale",
+    "foundpose_torch.benchmarks.cross_parity", "foundpose_torch.benchmarks.solve_sweep_harness",
+    "foundpose_torch.benchmarks.ransac_sweep", "foundpose_torch.benchmarks.lm_iters_sweep",
+    "foundpose_torch.benchmarks.select_iter_sweep",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
     """Each module of the serving, refinement, evaluation, CLI, builder,
-    multi-device, ViT-G, bench and measurement slices imports on its own with jax, flax, foundpose_tpu, PIL, tabulate and cv2
-    blocked."""
+    multi-device, ViT-G, bench and measurement slices, and of the
+    cross-parity oracle and the solve sweeps, imports on its own with jax,
+    flax, foundpose_tpu, PIL, tabulate, cv2 and sklearn blocked."""
     code = (
         "import sys, importlib\n"
         f"for name in {BLOCKED!r}:\n"

@@ -4,6 +4,11 @@ posed-mesh overlays, the error point cloud and the HTML gallery, and the
 software rasterizer's colour, depth and mask (native library and numpy
 fallback) for one mesh and camera."""
 
+import os
+import shutil
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -99,16 +104,40 @@ def _cameras():
     return j, t
 
 
+@pytest.fixture(scope="module")
+def makefile_library(tmp_path_factory):
+    """The JAX package's library as native/Makefile builds it (its own
+    recipe and flags, in a copy of native/), loaded through the JAX
+    package's own binding. A copy, because the JAX package's tests delete
+    and rebuild native/librasterizer.so while other test processes run, so
+    a load of that file could find it half written."""
+    native = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+    build = tmp_path_factory.mktemp("native")
+    for name in ("Makefile", "rasterizer.cpp"):
+        shutil.copy(os.path.join(native, name), build / name)
+    env = {k: v for k, v in os.environ.items() if k != "CXXFLAGS"}
+    out = subprocess.run(["make", "-C", str(build)], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_rast, "_LIB_PATHS", [str(build / "librasterizer.so")])
+        lib = j_rast._load_native(build=False)
+    assert lib is not None
+    return lib
+
+
 @pytest.fixture(params=["native", "numpy"])
 def rasterizers(request, monkeypatch):
-    """Both packages' rasterizer on the native library (built from native/
-    at first use) or, forced, on the numpy fallback."""
+    """Both packages' rasterizer on its native library (the port's own
+    build against native/Makefile's) or, forced, on the numpy fallback."""
     if request.param == "numpy":
         for mod in (j_rast, t_rast):
             monkeypatch.setattr(mod, "_NATIVE", None)
             monkeypatch.setattr(mod, "_NATIVE_TRIED", True)
-    elif t_rast._get_native() is None:
-        pytest.fail("the native rasterizer did not build from native/")
+    else:
+        if t_rast._get_native() is None:
+            pytest.fail("no C++ compiler: the port's native rasterizer was not built")
+        monkeypatch.setattr(j_rast, "_NATIVE", request.getfixturevalue("makefile_library"))
     return request.param
 
 
@@ -161,3 +190,59 @@ def test_pointcloud_error_and_gallery_match_jax(tmp_path):
         mod.write_gallery(str(tmp_path / name), recs, imgs, metric_key="score", top_n=2)
     j = (tmp_path / "j.html").read_text().replace("foundpose_tpu report", "foundpose report")
     assert (tmp_path / "t.html").read_text() == j
+
+
+def _run_loader(tmp_path, code):
+    """`code` in a fresh interpreter after the port's rasterizer module is
+    imported as `rz` with its build directory at `tmp_path` (so nothing
+    here touches a library another process may be loading)."""
+    prelude = (
+        "import os, sys\n"
+        "from foundpose_torch.renderer import rasterizer as rz\n"
+        f"rz.BUILD_DIR = {str(tmp_path)!r}\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-c", prelude + code], capture_output=True,
+                          text=True, timeout=300, cwd=root)
+
+
+def test_native_loader_survives_a_rebuild(tmp_path):
+    """A library cut short at the port's target path (a half-written file)
+    is rebuilt and loaded; `_NATIVE` is set, and only then `_NATIVE_TRIED`."""
+    if t_rast._compiler() is None:
+        pytest.skip("no C++ compiler on this host")
+    out = _run_loader(tmp_path, (
+        "path = rz.library_path()\n"
+        "assert os.path.dirname(path) == rz.BUILD_DIR\n"
+        "os.makedirs(rz.BUILD_DIR, exist_ok=True)\n"
+        "open(path, 'wb').write(b'\\x7fELF' + bytes(60))\n"
+        "assert rz._NATIVE is None and not rz._NATIVE_TRIED\n"
+        "assert rz._get_native() is not None\n"
+        "assert rz._NATIVE is not None and rz._NATIVE_TRIED\n"
+        "assert os.path.getsize(path) > 4096\n"
+        "print('rebuilt', os.listdir(rz.BUILD_DIR))\n"
+    ))
+    assert out.returncode == 0 and "rebuilt" in out.stdout, out.stderr
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+
+
+@pytest.mark.parametrize("source", ["missing", "broken"])
+def test_native_loader_raises_when_the_build_fails(tmp_path, source):
+    """A build that fails raises (with the compiler's message) instead of
+    leaving the process on the numpy version; `_NATIVE_TRIED` stays unset."""
+    if t_rast._compiler() is None:
+        pytest.skip("no C++ compiler on this host")
+    src = tmp_path / "rasterizer.cpp"
+    if source == "broken":
+        src.write_text("this is not C++\n")
+    out = _run_loader(tmp_path, (
+        f"rz._SOURCE = {str(src)!r}\n"
+        "try:\n"
+        "    rz._get_native()\n"
+        "except (OSError, RuntimeError) as e:\n"
+        "    assert rz._NATIVE is None and not rz._NATIVE_TRIED\n"
+        "    print('raised', type(e).__name__, e)\n"
+    ))
+    assert out.returncode == 0 and "raised" in out.stdout, (out.stdout, out.stderr)
+    if source == "broken":
+        assert "RuntimeError" in out.stdout and "error" in out.stdout
