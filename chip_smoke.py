@@ -224,6 +224,23 @@ Phases (each prints one line and raises on failure):
      line, every cell's AR, wall ms and
      launches (buddies 1, scorer 1, or 2 for a two-phase cell); every AR
      finite, each oracle AR >= 0.9; the pick is reported, not gated.
+  18 (after phase 17, before phase 12 (e) and phase 11) the ViT parity leg
+     and the reference replicas (foundpose_torch/benchmarks/hf_dinov2,
+     host_standins, reference_baseline, reference_offline_baseline,
+     cross_parity.vit_parity_leg). (a) vit_parity_leg at 518 px, 2 crops:
+     the port's ViT-S/14-reg to layer 9 (unfused f32, calibrated weights)
+     against the independent hf_dinov2 model on the same weights, max
+     |delta| <= 2e-4, kernel 4 launched exactly 10 times from zero; kernel 4
+     on the leg's layer-0 q, k, v [2, 6, 1374, 64] f32 against its twin (rel.
+     L2 <= 1e-5), timed beside the twin and scaled_dot_product_attention;
+     the 420 px delta printed, not gated (the two recipes for interpolating
+     position embeddings differ). (b) reference_baseline at its defaults (6
+     crops at LM-O scale, the ViT at batch 1 on the card, cv2 and numpy on
+     the host; no kernel of the port launched): measured crops/s, both
+     adjusted estimates, and phase 14's ViT-S bench crops/s over each. (c)
+     reference_offline_baseline at its defaults: seconds an object measured
+     and adjusted, each over phase 10's build of one object. Every figure
+     finite and positive; the ratios are findings.
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -657,7 +674,6 @@ def attention_vs_twin(torch, model, vit_cfg, crops):
     import torch.nn.functional as F
 
     from foundpose_torch.models import dinov2
-    from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
     from foundpose_torch.ops.vit_block import layer_norm
 
     x, _ = dinov2.embed_tokens(model, dinov2.normalize_images(crops))
@@ -666,27 +682,38 @@ def attention_vs_twin(torch, model, vit_cfg, crops):
     xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], vit_cfg.layer_norm_eps)
     qkv = F.linear(xn, p["qkv_weight"], p["qkv_bias"]).reshape(
         b, t, 3, vit_cfg.num_heads, vit_cfg.head_dim).permute(2, 0, 3, 1, 4).contiguous()
-    flops = 4.0 * b * vit_cfg.num_heads * t * t * vit_cfg.head_dim
-    res = {}
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v = (qkv[i].to(dt).contiguous() for i in range(3))
-        got = fused_attention_bhtd(q, k, v)
-        ref = attention_plain(q, k, v)
-        rel = float(torch.linalg.vector_norm((got - ref).float()) / torch.linalg.vector_norm(ref.float()))
-        err = float((got.float() - ref.float()).abs().max())
-        bms, by = bound(flops, 4 * nbytes(q), name)
-        res[name] = dict(
-            rel_l2=rel, max_abs_err=err, bound_ms=bms, bound_by=by,
-            ms=cuda_ms(torch, lambda: fused_attention_bhtd(q, k, v)),
-            plain_ms=cuda_ms(torch, lambda: attention_plain(q, k, v)),
-            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
-        )
-        r = res[name]
-        log(2, f"attention {list(q.shape)} {name}: rel L2 {rel:.2e} (tol {ATTN_REL_L2[name]}), "
+    res = {name: attention_pair(torch, *(qkv[i].to(dt).contiguous() for i in range(3)), name, 2)
+           for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    return {**res["f32"], "bf16": res["bf16"]}
+
+
+def attention_pair(torch, q, k, v, name, phase):
+    """The attention kernel against its twin on q, k, v [B, H, T, 64] of
+    dtype `name` ("f32" or "bf16"): rel. L2 within ATTN_REL_L2, CUDA-event
+    times of kernel, twin and scaled_dot_product_attention, the bound."""
+    import torch.nn.functional as F
+
+    from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
+
+    b, h, t, dh = q.shape
+    flops = 4.0 * b * h * t * t * dh
+    got = fused_attention_bhtd(q, k, v)
+    ref = attention_plain(q, k, v)
+    rel = float(torch.linalg.vector_norm((got - ref).float()) / torch.linalg.vector_norm(ref.float()))
+    err = float((got.float() - ref.float()).abs().max())
+    bms, by = bound(flops, 4 * nbytes(q), name)
+    r = dict(
+        rel_l2=rel, max_abs_err=err, bound_ms=bms, bound_by=by,
+        ms=cuda_ms(torch, lambda: fused_attention_bhtd(q, k, v)),
+        plain_ms=cuda_ms(torch, lambda: attention_plain(q, k, v)),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+        shape=list(q.shape), gflop=flops / 1e9,
+    )
+    log(phase, f"attention {list(q.shape)} {name}: rel L2 {rel:.2e} (tol {ATTN_REL_L2[name]}), "
                f"max abs {err:.2e}; kernel {r['ms']:.3f} ms vs twin {r['plain_ms']:.3f} ms vs "
                f"scaled_dot_product_attention {r['library_ms']:.3f} ms; bound {bms:.4f} ms ({by})")
-        check(rel <= ATTN_REL_L2[name], f"attention {name} rel L2 {rel}")
-    return {**res["f32"], "shape": list(qkv.shape[1:]), "gflop": flops / 1e9, "bf16": res["bf16"]}
+    check(rel <= ATTN_REL_L2[name], f"attention {name} {list(q.shape)} rel L2 {rel}")
+    return r
 
 
 def probe_vs_twin(torch, device):
@@ -3448,6 +3475,133 @@ def phase_parity(torch, device):
     return res
 
 
+# Phase 18: the ViT parity leg's gate, the JAX package's bound for its full
+# forward against transformers (tests/test_dinov2.py); the leg's kernel-4
+# launches (the unfused ViT-S to layer 9).
+VIT_PARITY_ATOL = 2e-4
+VIT_PARITY_LAUNCHES = 10
+
+
+def first_attention_operands(fn):
+    """(fn(), the q, k, v of the first attention call fn makes through
+    models/dinov2): the wrapper keeps its own launch count."""
+    from foundpose_torch.models import dinov2
+
+    orig, got = dinov2.fused_attention_bhtd, []
+
+    def grab(q, k, v, *args, **kwargs):
+        if not got:
+            got.append((q, k, v))
+        return orig(q, k, v, *args, **kwargs)
+
+    dinov2.fused_attention_bhtd = grab
+    try:
+        out = fn()
+    finally:
+        dinov2.fused_attention_bhtd = orig
+    return out, got[0]
+
+
+def finite_positive(values):
+    return all(np.isfinite(v) and v > 0 for v in values)
+
+
+def phase_reference(torch, device, report):
+    """The ViT parity leg and the reference replicas on the card (see the
+    module docstring)."""
+    from foundpose_torch.benchmarks import (bench, builder_full_scale, cross_parity,
+                                            reference_baseline, reference_offline_baseline)
+
+    started = time.perf_counter()
+    res = {}
+    # (a) vit_parity_leg at 518 px: the gate, kernel 4's launches from zero
+    # and its operands (layer 0's q, k, v), then kernel 4 against its twin.
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    delta, qkv = first_attention_operands(lambda: cross_parity.vit_parity_leg(device=device))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    leg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    delta_420 = cross_parity.vit_parity_leg(size=420, device=device)
+    leg420_s = time.perf_counter() - t0
+    log(18, f"vit_parity_leg 518 px, 2 crops: max |delta| {delta:.3e} (tol {VIT_PARITY_ATOL}), "
+            f"launches from zero {launches}, {leg_s:.1f} s; 420 px (not gated: the two "
+            f"interpolation recipes) {delta_420:.5f}, {leg420_s:.1f} s")
+    check(delta <= VIT_PARITY_ATOL, f"vit_parity_leg: the port's ViT and hf_dinov2 differ by "
+                                    f"{delta} at 518 px")
+    check_launches(launches, dict(attention=VIT_PARITY_LAUNCHES), "vit_parity_leg 518")
+    kern = attention_pair(torch, *qkv, "f32", 18)
+    del qkv
+    res["vit_parity_leg"] = dict(max_delta_native=delta, max_delta_420_interp=delta_420,
+                                 launches=launches, seconds=leg_s, seconds_420=leg420_s,
+                                 kernel=dict(kern, launches=launches["attention"]))
+
+    # (b) the per-crop replica at its defaults; it runs none of the port's kernels.
+    bench_cps = report["bench"]["bench vits14 b128"]["value"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rb = reference_baseline.run(device=device)
+    rb.update(launches=read_counts(), seconds=time.perf_counter() - t0)
+    check_launches(rb["launches"], {}, "reference_baseline")
+    stages = rb["stage_seconds_per_crop"]
+    crops_s = {k: rb[k] for k in ("measured_this_host", "adjusted_with_measured_vit",
+                                  "adjusted_reference_estimate")}
+    rb["bench_vits14_b128_ratio"] = {k: bench_cps / v for k, v in crops_s.items()}
+    log(18, "reference_baseline " + json.dumps(rb))
+    log(18, f"reference_baseline ({rb['n_crops']} crops, {rb['cpu_count']} cores, "
+            f"{rb['card']}): measured {crops_s['measured_this_host']:.3f} crops/s, adjusted "
+            f"with the measured ViT {crops_s['adjusted_with_measured_vit']:.3f}, JAX formula "
+            f"{crops_s['adjusted_reference_estimate']:.3f}; ViT {stages['vit'] * 1e3:.2f} ms, pnp "
+            f"{stages['pnp'] * 1e3:.1f} ms a crop; phase 14's ViT-S bench at batch 128 "
+            f"({bench_cps:.2f} crops/s) over each: " + ", ".join(
+                f"{k} {v:.2f}x" for k, v in rb["bench_vits14_b128_ratio"].items())
+            + f" (the bench's vs_baseline: {bench_cps / bench.REFERENCE_CROPS_PER_SEC:.2f}x over "
+              f"{bench.REFERENCE_CROPS_PER_SEC}); {rb['seconds']:.1f} s")
+    check(finite_positive([*crops_s.values(), *stages.values()]),
+          f"reference_baseline: a figure is not finite and positive: {rb}")
+    res["reference_baseline"] = rb
+
+    # (c) the offline replica at its defaults, against phase 10's build of
+    # one LM-O-sized object through builder_full_scale.build_object.
+    built = report["builder"]["lmo"]["builder_full_scale"]
+    port_s = built["gen_templates_s_per_object"] + built["repre_build_s_per_object"]
+    reset_counts()
+    t0 = time.perf_counter()
+    ro = reference_offline_baseline.run(device=device)
+    ro.update(launches=read_counts(), seconds=time.perf_counter() - t0)
+    check_launches(ro["launches"], {}, "reference_offline_baseline")
+    per_object = {
+        "measured": ro["gen_templates"]["measured_cpu_s_per_object_excl_render"]
+        + ro["gen_repre"]["measured_s_per_object"],
+        "adjusted": ro["adjusted_total_s_per_object"],
+        "jax_constants": builder_full_scale.REF_GEN_TEMPLATES_S
+        + builder_full_scale.REF_GEN_REPRE_S,
+    }
+    ro["builder_ratio"] = {k: v / port_s for k, v in per_object.items()}
+    log(18, "reference_offline_baseline " + json.dumps(ro))
+    log(18, f"reference_offline_baseline: s an object measured {per_object['measured']:.1f} "
+            f"(gen_templates {ro['gen_templates']['measured_cpu_s_per_object_excl_render']:.1f} "
+            f"without the render, gen_repre {ro['gen_repre']['measured_s_per_object']:.1f}), "
+            f"adjusted {per_object['adjusted']:.1f} (gen_templates "
+            f"{ro['gen_templates']['adjusted_s_per_object']:.1f}, gen_repre "
+            f"{ro['gen_repre']['adjusted_s_per_object']:.1f}); ViT "
+            f"{ro['gen_repre']['per_template_s']['vit_s'] * 1e3:.2f} ms a template; phase 10's "
+            f"build {port_s:.2f} s: each over it " + ", ".join(
+                f"{k} {v:.2f}x" for k, v in ro["builder_ratio"].items())
+            + f"; {ro['seconds']:.1f} s")
+    figures = [*per_object.values(), *ro["gen_templates"]["per_view_cpu_s"].values(),
+               *ro["gen_repre"]["per_template_s"].values(), ro["gen_repre"]["pca_s"],
+               ro["gen_repre"]["kmeans_s_extrapolated"], ro["gen_repre"]["tfidf_s"]]
+    check(finite_positive(figures),
+          f"reference_offline_baseline: a figure is not finite and positive: {ro}")
+    res["reference_offline_baseline"] = ro
+    res["seconds"] = time.perf_counter() - started
+    log(18, f"phase 18 took {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     import torch
 
@@ -3504,8 +3658,8 @@ def main():
         report["cli"] = phase_cli(torch, params, vit_cfg, device,
                                   report["main_path"]["median_latency_s"])
     report["builder"] = phase_builder(torch, params, vit_cfg, device)
-    # Phases 13, 12 (a)-(d), 14, 15 and 16 run before phase 12 (e) and
-    # phase 11, and 13 before 12: once gloo ranks had been spawned from
+    # Phases 13, 12 (a)-(d), 14, 15, 16, 17 and 18 run before phase 12 (e)
+    # and phase 11, and 13 before 12: once gloo ranks had been spawned from
     # this process (phase 11, phase 12 (e)), torch.profiler here recorded
     # 13 of a ViT-G layer's 35 device kernels, 16 of a ViT-L layer's and 2
     # of 20 scorer launches, and the launch splits and request profiles
@@ -3516,6 +3670,7 @@ def main():
     report["datasets"] = phase_datasets(torch, params, vit_cfg, device)
     report["micro"] = phase_micro(torch)
     report["parity"] = phase_parity(torch, device)
+    report["reference"] = phase_reference(torch, device, report)
     report["vitg"]["tp"] = vitg_tp(torch, vitg_tp_state, device)
     del vitg_tp_state
     report["mesh"] = phase_mesh(torch, params, vit_cfg, device)
@@ -3574,7 +3729,8 @@ def main():
                "cross_parity featuremetric_leg, off + on":
                    report["parity"]["featuremetric"]["launches"],
                **{f"{sw} (every cell)": report["parity"][sw]["launches"]
-                  for sw in ("ransac_sweep", "lm_iters_sweep", "select_iter_sweep")}}
+                  for sw in ("ransac_sweep", "lm_iters_sweep", "select_iter_sweep")},
+               "vit_parity_leg 518, one call": report["reference"]["vit_parity_leg"]["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3596,6 +3752,9 @@ def main():
             if label.startswith(name):
                 entry[f"cross_parity{label[len(name):]}"] = {
                     key: k17[key] for key in keys + ("launches",)}
+        if name == "attention":  # on the ViT parity leg's [2, 6, 1374, 64] (phase 18)
+            k18 = report["reference"]["vit_parity_leg"]["kernel"]
+            entry["vit_parity_leg_518"] = {key: k18[key] for key in keys + ("launches",)}
         if name == "vit_block":  # the SwiGLU body at ViT-G/14 (phase 12; GELU above)
             g = report["vitg"]["kernel"]
             entry["swiglu"] = {key: g[key] for key in keys}

@@ -29,7 +29,9 @@ batch over the time of a step and the card's bf16 dense peak, looked up by
 
 Prints one JSON line with bench.py's keys plus `card` (nvidia-smi's name
 and power limit). `vs_baseline` divides by 18.85 crops/s, a CPU replica of
-the reference measured on another host (BASELINE.md), not on this machine.
+the reference measured on another host (BASELINE.md), not on this machine;
+`python -m foundpose_torch.benchmarks.reference_baseline` measures the same
+replica on the card's own machine, its ViT on the card.
 `BENCH_STAGES=1` adds `stage_ms_per_batch` (vit, retrieval, buddies,
 pnp_select: `extract_facet`, `retrieve_batch`, `match_batch` and
 `solve_batch`, each timed by CUDA events over calls made back to back on

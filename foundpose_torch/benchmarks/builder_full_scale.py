@@ -20,7 +20,9 @@ apart (each ended by a device synchronize), and the time under no stage.
 
 Prints one JSON line with the JAX script's keys. `vs_baseline` divides by
 the reference replica's seconds per object measured on another host and
-adjusted in the reference's favour (BASELINE.md), not on this machine.
+adjusted in the reference's favour (BASELINE.md), not on this machine;
+`python -m foundpose_torch.benchmarks.reference_offline_baseline` measures
+the same replica on the card's own machine, its ViT on the card.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Pose-level cross-implementation parity on one NVIDIA GPU: an independent
 reference-style replica against the port (counterpart of
-benchmarks/cross_parity.py, without sklearn and without the ViT leg).
+benchmarks/cross_parity.py, without sklearn and without transformers).
 
-    python -m foundpose_torch.benchmarks.cross_parity [--crops 100] [--templates 798]
+    python -m foundpose_torch.benchmarks.cross_parity [--crops 100] [--templates 798] [--skip-vit]
     python -m foundpose_torch.benchmarks.cross_parity --featuremetric [--crops 100]
 
 The replica (`ReferenceReplica`) re-implements the reference's per-crop
@@ -29,10 +29,13 @@ report has the offline tf-idf's seconds, the host threads the replica's
 crops ran on (`replica_sec_per_crop` is their wall over the crops; the JAX
 script's ran one at a time), each leg's wall between
 `torch.cuda.synchronize()` calls and its scorer and buddies launches
-counted from zero. `--featuremetric` runs only the refinement leg
-(`featuremetric_leg`). Prints one JSON line; exits nonzero when an AR
-delta exceeds 1 point. The JAX script's third leg (ViT features against
-`transformers`) is not ported: the card machine has no `transformers`.
+counted from zero. Unless `--skip-vit`, the third leg (`vit_parity_leg`)
+adds `vit_feature_max_delta_native` (518 px) and
+`vit_feature_max_delta_420_interp` (420 px, not a gate: the position
+embeddings' two interpolation recipes disagree there), the port's ViT
+against `hf_dinov2`, the stand-in for `transformers`' DINOv2.
+`--featuremetric` runs only the refinement leg (`featuremetric_leg`).
+Prints one JSON line; exits nonzero when an AR delta exceeds 1 point.
 """
 
 from __future__ import annotations
@@ -592,6 +595,49 @@ def featuremetric_leg(n_crops=100, num_templates=96, pts_per_template=200, feat_
     return report
 
 
+def vit_parity_leg(n_crops=2, size=None, params_np=None, device="cuda"):
+    """Shared-weights ViT check: the port's `extract_facet` (ViT-S/14-reg,
+    layer-9 token facet, final norm; unfused f32, so the attention kernel
+    on the card) against the independent `hf_dinov2.Dinov2WithRegistersModel`
+    on the same weights, loaded through `to_hf_state_dict`: the replica's
+    `hidden_states[layer + 1]` through its `layernorm`, class and register
+    tokens dropped. The weights are `params_np` (a numpy tree in the JAX
+    layout) where given, else `bench_weights.realistic_params(0, cfg)`.
+    Images are `np.random.default_rng(3)` uniform, NHWC, `size` px (None:
+    the native `pos_grid * patch`, 518 px, where neither side interpolates
+    the position embeddings; elsewhere the official recipe and the
+    registers model's antialiased one disagree by design). Returns the
+    max abs feature delta."""
+    from foundpose_torch.benchmarks import hf_dinov2
+    from foundpose_torch.models import bench_weights, dinov2, weights
+
+    device = bench.require_device(device)
+    cfg = dinov2.parse_model_name(bench.DEFAULT_EXTRACTOR)
+    if size is None:
+        size = cfg.pos_grid * cfg.patch_size
+    if params_np is None:
+        params_np = bench_weights.realistic_params(0, cfg)
+    model = weights.module_from_jax_params(params_np, cfg, device)
+    replica = hf_dinov2.Dinov2WithRegistersModel(hf_dinov2.Dinov2Config(
+        hidden_size=cfg.embed_dim, num_hidden_layers=cfg.depth,
+        num_attention_heads=cfg.num_heads, mlp_ratio=int(cfg.mlp_ratio),
+        layer_norm_eps=cfg.layer_norm_eps, image_size=cfg.pos_grid * cfg.patch_size,
+        patch_size=cfg.patch_size, use_swiglu_ffn=cfg.swiglu,
+        num_register_tokens=cfg.num_register_tokens))
+    hf_dinov2.load_hf_state_dict(replica, weights.to_hf_state_dict(params_np, cfg))
+    replica = replica.to(device)
+
+    images = np.random.default_rng(3).uniform(size=(n_crops, size, size, 3)).astype(np.float32)
+    x = torch.from_numpy(images).to(device)
+    with torch.no_grad():
+        ours = dinov2.extract_facet(model, x)["feature_maps"]
+        hs = replica(x.permute(0, 3, 1, 2), output_hidden_states=True).hidden_states
+        theirs = replica.layernorm(hs[cfg.layer + 1])[:, 1 + cfg.num_register_tokens :]
+    g = size // cfg.patch_size
+    theirs = theirs.reshape(n_crops, g, g, cfg.embed_dim)
+    return float((ours - theirs).abs().max())
+
+
 def ar_gate_failed(report) -> bool:
     """The JAX script's exit gate: an AR delta above 1 point."""
     return report["ar_delta_fast"] > 0.01 + 1e-9 or report["ar_delta_exact"] > 0.01 + 1e-9
@@ -601,6 +647,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--crops", type=int, default=100)
     ap.add_argument("--templates", type=int, default=798)
+    ap.add_argument("--skip-vit", action="store_true")
     ap.add_argument("--featuremetric", action="store_true",
                     help="run ONLY the featuremetric refine-on/off leg")
     ap.add_argument("--device", default="cuda")
@@ -609,6 +656,11 @@ def main(argv=None):
         print(json.dumps(featuremetric_leg(n_crops=args.crops, device=args.device)))
         return 0
     report = run_parity(num_templates=args.templates, n_crops=args.crops, device=args.device)
+    if not args.skip_vit:
+        t0 = time.perf_counter()
+        report["vit_feature_max_delta_native"] = vit_parity_leg(device=args.device)
+        report["vit_feature_max_delta_420_interp"] = vit_parity_leg(size=CROP, device=args.device)
+        print(f"[parity] vit legs {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     print(json.dumps(report))
     if ar_gate_failed(report):
         print("[parity] FAIL: AR delta exceeds 1 pt", file=sys.stderr)

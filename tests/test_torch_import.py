@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX import anywhere in its package;
 PIL, tabulate and cv2 imported only where an image is read or drawn, a
-table written or the cross-parity replica solves, and sklearn nowhere, so
-every module imports without them; and chip_smoke.py refuses to run
-without a GPU."""
+table written or a reference replica solves, and sklearn and transformers
+nowhere, so every module imports without them; and chip_smoke.py refuses
+to run without a GPU."""
 
 import json
 import os
@@ -15,7 +15,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundpose_torch")
-BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate", "cv2", "sklearn")
+BLOCKED = ("jax", "flax", "foundpose_tpu", "PIL", "tabulate", "cv2", "sklearn",
+           "transformers")
 
 
 def _sources():
@@ -77,13 +78,16 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.benchmarks.builder_full_scale",
     "foundpose_torch.benchmarks.cross_parity", "foundpose_torch.benchmarks.solve_sweep_harness",
     "foundpose_torch.benchmarks.ransac_sweep", "foundpose_torch.benchmarks.lm_iters_sweep",
-    "foundpose_torch.benchmarks.select_iter_sweep",
+    "foundpose_torch.benchmarks.select_iter_sweep", "foundpose_torch.benchmarks.hf_dinov2",
+    "foundpose_torch.benchmarks.host_standins", "foundpose_torch.benchmarks.reference_baseline",
+    "foundpose_torch.benchmarks.reference_offline_baseline",
 ])
 def test_serving_modules_import_with_jax_blocked(module):
     """Each module of the serving, refinement, evaluation, CLI, builder,
-    multi-device, ViT-G, bench and measurement slices, and of the
-    cross-parity oracle and the solve sweeps, imports on its own with jax,
-    flax, foundpose_tpu, PIL, tabulate, cv2 and sklearn blocked."""
+    multi-device, ViT-G, bench and measurement slices, of the
+    cross-parity oracle and the solve sweeps, and of the reference
+    replicas, imports on its own with jax, flax, foundpose_tpu, PIL,
+    tabulate, cv2, sklearn and transformers blocked."""
     code = (
         "import sys, importlib\n"
         f"for name in {BLOCKED!r}:\n"
