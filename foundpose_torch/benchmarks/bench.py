@@ -247,19 +247,14 @@ def window_seconds(fn: Callable[[], Any], device, checksum: bool = False) -> flo
 
 
 def kernel_counters() -> Dict[str, Callable]:
-    """The port's kernel wrappers by kernel name; each counts its launches
+    """The port's kernel wrappers by kernel name: the main path's
+    (profiling.kernel_counters) and the probe's; each counts its launches
     in its `launches` attribute."""
     from foundpose_torch.benchmarks import micro_int8
-    from foundpose_torch.ops.attention import fused_attention_bhtd
-    from foundpose_torch.ops.buddies_kernel import cycle_distances
-    from foundpose_torch.ops.vit_block import fused_vit_block
-    from foundpose_torch.pose import pnp
+    from foundpose_torch.utils import profiling
 
-    return {
-        "vit_block": fused_vit_block, "buddies": cycle_distances,
-        "ransac_score": pnp.score_hypotheses, "attention": fused_attention_bhtd,
-        "mm_bf16": micro_int8.mm_bf16, "mm_int8": micro_int8.mm_int8,
-    }
+    return {**profiling.kernel_counters(), "mm_bf16": micro_int8.mm_bf16,
+            "mm_int8": micro_int8.mm_int8}
 
 
 def substage_times(fn: Callable[[], Any], device) -> Dict[str, Any]:

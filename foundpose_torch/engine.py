@@ -16,6 +16,13 @@ of prod(mesh_shape) ranks builds the engine and calls it with the same
 arguments, and every rank gets the same results. Not ported: the JAX
 engine's single-program fusion and jit caches, which eager PyTorch has no
 use for. RANSAC draws come from a torch.Generator seeded from `seed`.
+
+Spans (utils/profiling, recorded only while a recording is open): each
+call is the root span "estimate"; in it "prepare" (the crop cameras and
+the frame's copy), then per chunk "warp" (the chunk's cameras to the
+device, its masks and the warp) and the step's own spans ("step", ...),
+then per chunk "fetch" (the copy to the host, so the host's wait for the
+card). The unpacking of the rows is the self time of "estimate".
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from foundpose_torch.pipeline import inference
 from foundpose_torch.pipeline.multi_object import pose_from_crops_multi
 from foundpose_torch.repre import ObjectRepre, stack_repres
 from foundpose_torch.structs import PinholeCamera, to_device
+from foundpose_torch.utils import profiling
 
 
 class PoseEngine:
@@ -215,16 +223,18 @@ class PoseEngine:
         device)]."""
         h, w = image.shape[:2]
         n = len(boxes_xyxy)
-        img, src_cam, cams, crop_cams = self._prepare_cams(image, boxes_xyxy, K)
+        with profiling.span("prepare"):
+            img, src_cam, cams, crop_cams = self._prepare_cams(image, boxes_xyxy, K)
         bs = self.batch_size
         packed = []
         for s in range(0, n, bs):
             chunk = list(range(s, min(s + bs, n)))
             pad = bs - len(chunk)
             idx = chunk + [chunk[-1]] * pad
-            dst = cams.index(torch.tensor(idx)).to(self.device)
-            crops, crop_masks = self._warp(img, self._mask_stack([masks[i] for i in idx], h, w),
-                                           src_cam, dst)
+            with profiling.span("warp"):
+                dst = cams.index(torch.tensor(idx)).to(self.device)
+                crops, crop_masks = self._warp(
+                    img, self._mask_stack([masks[i] for i in idx], h, w), src_cam, dst)
             self._counter += 1
             out = step(crops, crop_masks, dst, chunk, pad, self._draws(bs))
             packed.append((chunk, self._pack_outputs(out)))
@@ -232,12 +242,15 @@ class PoseEngine:
 
     def _serve(self, image, boxes_xyxy, masks, K, step) -> List[Dict[str, Any]]:
         """`_dispatch`, then one fetch per chunk and the unpacked rows."""
-        crop_cams, packed = self._dispatch(image, boxes_xyxy, masks, K, step)
-        results: List[Dict[str, Any]] = []
-        for chunk, p in packed:
-            p = p.cpu().numpy()  # one transfer per chunk
-            results.extend(self._unpack_row(p, j, crop_cams[i]) for j, i in enumerate(chunk))
-        return results
+        with profiling.span("estimate"):
+            crop_cams, packed = self._dispatch(image, boxes_xyxy, masks, K, step)
+            results: List[Dict[str, Any]] = []
+            for chunk, p in packed:
+                with profiling.span("fetch"):
+                    p = p.cpu().numpy()  # one transfer per chunk
+                results.extend(self._unpack_row(p, j, crop_cams[i])
+                               for j, i in enumerate(chunk))
+            return results
 
     # -- public API ---------------------------------------------------------------
 

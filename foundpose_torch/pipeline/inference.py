@@ -10,6 +10,14 @@ kernels of the configured path run (ops/vit_block or ops/attention,
 ops/buddies_kernel on the approx-top-k path, pose/pnp.score_hypotheses); on
 a CPU their twins do. The tensors' device decides.
 
+Spans (utils/profiling, recorded only while a recording is open):
+`pose_from_crops` opens "step" and in it "vit"; `pose_from_features` opens
+"retrieval", "match" and "solve" (`solve_batch`). In the solve,
+`solve_batch` opens "ransac" (the RANSAC over every set, the pick of each
+crop's winner and the two-phase second pass) and `refine_winner` opens
+"refine" (with "lo", "lm" and "featuremetric" as configured); the
+selection, `estimate_score` and the world frame are the solve's self time.
+
 Randomness: RANSAC draws come from `draws` [B, top_n, H, 6] when given,
 else from `generator`. The JAX package derives them from one PRNG key; the
 tests pass its draws here to compare the two packages pose for pose.
@@ -32,6 +40,7 @@ from foundpose_torch.pose import pnp as pnp_mod
 from foundpose_torch.pose.featuremetric import refine_pose_featuremetric
 from foundpose_torch.repre import ObjectRepre
 from foundpose_torch.structs import PinholeCamera
+from foundpose_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,23 +254,28 @@ def refine_winner(r_best, t_best, inliers_best, count_best, c2d, c3d, cvalid,
     PCA projection for them, or None; winner_bank: () -> (vertices, feats,
     mask) of each crop's winning template. The three are used only by the
     featuremetric stage, which refines every crop, failed ones included."""
-    c2d = c2d.float()
-    c3d = c3d.float()
-    if config.pnp_lo_iters > 0:
-        r_best, t_best, inliers_best, count_best = pnp_mod.lo_refine(
-            r_best, t_best, c2d, c3d, cvalid, cam_f, cam_c,
-            inlier_thresh=config.pnp_inlier_thresh, iters=config.pnp_lo_iters,
-            inliers=inliers_best, count=count_best,
-        )
-    if config.pnp_refine_lm:
-        r_best, t_best = pnp_mod.refine_pose_lm_guarded(
-            r_best, t_best, c2d, c3d, inliers_best, cam_f, cam_c, iters=config.lm_iters
-        )
-    if config.refine_featuremetric:
-        r_best, t_best = featuremetric_winner(
-            r_best, t_best, cam_f, cam_c, config, fmap, project, winner_bank
-        )
-    return r_best, t_best, count_best
+    with profiling.span("refine"):
+        c2d = c2d.float()
+        c3d = c3d.float()
+        if config.pnp_lo_iters > 0:
+            with profiling.span("lo"):
+                r_best, t_best, inliers_best, count_best = pnp_mod.lo_refine(
+                    r_best, t_best, c2d, c3d, cvalid, cam_f, cam_c,
+                    inlier_thresh=config.pnp_inlier_thresh, iters=config.pnp_lo_iters,
+                    inliers=inliers_best, count=count_best,
+                )
+        if config.pnp_refine_lm:
+            with profiling.span("lm"):
+                r_best, t_best = pnp_mod.refine_pose_lm_guarded(
+                    r_best, t_best, c2d, c3d, inliers_best, cam_f, cam_c,
+                    iters=config.lm_iters,
+                )
+        if config.refine_featuremetric:
+            with profiling.span("featuremetric"):
+                r_best, t_best = featuremetric_winner(
+                    r_best, t_best, cam_f, cam_c, config, fmap, project, winner_bank
+                )
+        return r_best, t_best, count_best
 
 
 def featuremetric_winner(r_best, t_best, cam_f, cam_c, config: InferenceConfig, fmap,
@@ -317,30 +331,31 @@ def solve_batch(
     def flat(a):
         return a.reshape(b * n, *a.shape[2:])
 
-    res = pnp_mod.ransac_pnp(
-        flat(cors_b.coord_2d), flat(cors_b.coord_3d), flat(cors_b.valid),
-        cam_f[:, None].expand(b, n, 2).reshape(b * n, 2),
-        cam_c[:, None].expand(b, n, 2).reshape(b * n, 2),
-        num_hypotheses=config.pnp_select_iter or config.pnp_ransac_iter,
-        inlier_thresh=config.pnp_inlier_thresh,
-        refine_lm=False, lm_iters=config.lm_iters, lo_iters=0,
-        draws=None if draws is None else flat(draws),
-        generator=generator,
-    )
-    per_tpl_quality = res.quality.reshape(b, n)
-    quality = torch.where(res.success.reshape(b, n), per_tpl_quality, -1.0)
-    best = torch.argmax(quality, dim=-1)  # first maximum
-    ar = torch.arange(b, device=dev)
+    with profiling.span("ransac"):
+        res = pnp_mod.ransac_pnp(
+            flat(cors_b.coord_2d), flat(cors_b.coord_3d), flat(cors_b.valid),
+            cam_f[:, None].expand(b, n, 2).reshape(b * n, 2),
+            cam_c[:, None].expand(b, n, 2).reshape(b * n, 2),
+            num_hypotheses=config.pnp_select_iter or config.pnp_ransac_iter,
+            inlier_thresh=config.pnp_inlier_thresh,
+            refine_lm=False, lm_iters=config.lm_iters, lo_iters=0,
+            draws=None if draws is None else flat(draws),
+            generator=generator,
+        )
+        per_tpl_quality = res.quality.reshape(b, n)
+        quality = torch.where(res.success.reshape(b, n), per_tpl_quality, -1.0)
+        best = torch.argmax(quality, dim=-1)  # first maximum
+        ar = torch.arange(b, device=dev)
 
-    def pick(a):
-        return a.reshape(b, n, *a.shape[1:])[ar, best]
+        def pick(a):
+            return a.reshape(b, n, *a.shape[1:])[ar, best]
 
-    c2d, c3d = cors_b.coord_2d[ar, best], cors_b.coord_3d[ar, best]
-    cvalid, c2d_ids = cors_b.valid[ar, best], cors_b.coord_2d_ids[ar, best]
-    r_best, t_best, inliers_best, quality_best = full_budget_winner(
-        pick(res.R), pick(res.t), pick(res.inliers), pick(res.quality),
-        c2d, c3d, cvalid, cam_f, cam_c, config, generator, full_draws,
-    )
+        c2d, c3d = cors_b.coord_2d[ar, best], cors_b.coord_3d[ar, best]
+        cvalid, c2d_ids = cors_b.valid[ar, best], cors_b.coord_2d_ids[ar, best]
+        r_best, t_best, inliers_best, quality_best = full_budget_winner(
+            pick(res.R), pick(res.t), pick(res.inliers), pick(res.quality),
+            c2d, c3d, cvalid, cam_f, cam_c, config, generator, full_draws,
+        )
     best_tid = template_ids_b[ar, best]
     proj = repre.raw_projector
     if obj_idx is None:
@@ -407,14 +422,17 @@ def pose_from_features(
     batched crop cameras; draws optional [B, top_n, H, 6]; full_draws
     optional [B, H, 6], the two-phase solve's second pass (solve_batch).
     """
-    feats_b, valid_b, tids_b, tscores_b = retrieve_batch(
-        feature_maps, masks, repre, config, generator
-    )
-    cors_b = match_batch(feats_b, valid_b, tids_b, tscores_b, repre, config)
-    return solve_batch(
-        feature_maps, valid_b, tids_b, tscores_b, cors_b, cameras, repre, config, draws,
-        generator, full_draws=full_draws,
-    )
+    with profiling.span("retrieval"):
+        feats_b, valid_b, tids_b, tscores_b = retrieve_batch(
+            feature_maps, masks, repre, config, generator
+        )
+    with profiling.span("match"):
+        cors_b = match_batch(feats_b, valid_b, tids_b, tscores_b, repre, config)
+    with profiling.span("solve"):
+        return solve_batch(
+            feature_maps, valid_b, tids_b, tscores_b, cors_b, cameras, repre, config, draws,
+            generator, full_draws=full_draws,
+        )
 
 
 def preprocess_crops(crops: torch.Tensor, config: InferenceConfig) -> torch.Tensor:
@@ -439,8 +457,10 @@ def pose_from_crops(
     """The full online step: crops [B, H, W, 3] (uint8 or float in [0, 1])
     already warped to the crop cameras, masks [B, H, W] (nonzero = valid)
     -> world-frame poses."""
-    images = preprocess_crops(crops, config)
-    feature_maps = dinov2.extract_facet(vit, images)["feature_maps"].float()
-    return pose_from_features(
-        feature_maps, masks.float(), cameras, repre, config, generator, draws
-    )
+    with profiling.span("step"):
+        with profiling.span("vit"):
+            images = preprocess_crops(crops, config)
+            feature_maps = dinov2.extract_facet(vit, images)["feature_maps"].float()
+        return pose_from_features(
+            feature_maps, masks.float(), cameras, repre, config, generator, draws
+        )

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from foundpose_torch import _kernels, geometry
+from foundpose_torch.utils import profiling
 
 _SQRT3 = math.sqrt(3.0)
 
@@ -300,6 +301,10 @@ def ransac_pnp(
     k_f / k_c [S, 2]. `draws` [S, H, 6] raw integers in [0, N); each is
     taken modulo the set's valid count and picks the valid point of that
     rank. quality = inlier count; success needs >= 6 inliers.
+
+    Spans (utils/profiling): "dlt" (the samples, the minimal solves and
+    the finite fix) and "score" (`score_hypotheses`, the best hypothesis
+    and its inliers).
     """
     s_, n, _ = coord_2d.shape
     h = num_hypotheses
@@ -312,20 +317,21 @@ def ransac_pnp(
 
     if draws is None:
         draws = torch.randint(0, n, (s_, h, 6), generator=generator, device=pts2d.device)
-    counts = sample_counts(valid, draws)
+    with profiling.span("dlt"):
+        counts = sample_counts(valid, draws)
+        rs, ts = _dlt_pose_many(pts3d, rays, validf, counts)
+        finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
+        eye = torch.eye(3, device=rs.device)
+        rs = torch.where(finite[..., None, None], rs, eye)
+        ts = torch.where(finite[..., None], ts, eye[2])
 
-    rs, ts = _dlt_pose_many(pts3d, rays, validf, counts)
-    finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
-    eye = torch.eye(3, device=rs.device)
-    rs = torch.where(finite[..., None, None], rs, eye)
-    ts = torch.where(finite[..., None], ts, eye[2])
-
-    hyp_counts = score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
-    best = torch.argmax(hyp_counts, dim=-1)  # first maximum
-    ar = torch.arange(s_, device=best.device)
-    r_best, t_best = rs[ar, best], ts[ar, best]
-    inliers, _ = _inliers(r_best, t_best, pts2d, pts3d, valid, k_f, k_c, inlier_thresh)
-    quality = hyp_counts[ar, best]
+    with profiling.span("score"):
+        hyp_counts = score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)
+        best = torch.argmax(hyp_counts, dim=-1)  # first maximum
+        ar = torch.arange(s_, device=best.device)
+        r_best, t_best = rs[ar, best], ts[ar, best]
+        inliers, _ = _inliers(r_best, t_best, pts2d, pts3d, valid, k_f, k_c, inlier_thresh)
+        quality = hyp_counts[ar, best]
 
     if lo_iters > 0:
         r_best, t_best, inliers, quality = lo_refine(
