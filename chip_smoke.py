@@ -14,7 +14,14 @@ Phases (each prints one line and raises on failure):
      hypotheses (counts bit-equal to the twin's; the kernel's device time
      under torch.profiler beside the CUDA-event time of the wrapper call);
      attention at f32 and bf16 (the unfused path's layer-0 q, k, v); both
-     GEMMs of the int8/bf16 probe. Errors against stated tolerances;
+     GEMMs of the int8/bf16 probe; the LO/LM refinement (csrc/refine.cu)
+     on the winners pose_from_crops passes it for a request of 16 crops
+     and a batch of 128 at lmo.json, each on a world whose first templates
+     are its own crops (batch_world_repre), so that the winners pose
+     (counts and inlier masks equal to the twin's in every set, R within
+     1e-4 and t within 5e-5 m in the sets with at least 12 inliers after
+     LO, at least half the sets; the twin's device kernels a call). Errors
+     against stated tolerances;
      CUDA-event times of kernel, twin and, where one PyTorch call computes
      the same function, that call; the least time the card could take
      (bound). The block's seven launches (LN1, qkv,
@@ -40,9 +47,10 @@ Phases (each prints one line and raises on failure):
      launched 10 times a request and the block and buddies kernels never;
      one estimate() up to its one device-to-host fetch under the CUDA sync
      debug mode "error" (a host sync raises), at lmo_exact.json (launches
-     from zero: attention 10, scorer 1, nothing else) and with lmo.json's
+     from zero: attention 10, scorer 1, refinement 1, nothing else) and
+     with lmo.json's
      switches (fused bf16 ViT on the block kernel, approximate top-k;
-     block 10, buddies 1, scorer 1, nothing else); cuDNN's TF32 switch does not change the results; card vs CPU
+     block 10, buddies 1, scorer 1, refinement 1, nothing else); cuDNN's TF32 switch does not change the results; card vs CPU
      on one request with the same draws.
   6  the int8/bf16 GEMM probe through its entry point
      (foundpose_torch.benchmarks.micro_int8.run).
@@ -133,7 +141,8 @@ Phases (each prints one line and raises on failure):
      (c) pose_from_crops at batch 16 on an LM-O-scale synthetic
      representation with PCA 1536 -> 256, as phase 3 (warm-up windows, 30
      timed requests, stage split, peak memory, torch.profiler), and the
-     launches from zero over one request (block 40, buddies 1, scorer 1).
+     launches from zero over one request (block 40, buddies 1, scorer 1,
+     refinement 1).
      (d) one registration chunk (16 templates) of configs/gen_repre/lmo.json
      with the ViT-G extractor, unfused f32: attention exactly 40 launches,
      finite features; the 798-template build is not run. (e), after phase
@@ -156,7 +165,7 @@ Phases (each prints one line and raises on failure):
      from utils/flops, the seven launches). (b) pose_from_crops at batch 16
      on an LM-O-scale synthetic representation with PCA 1024 -> 256, as
      phase 3, and the launches from zero over one request (block 18,
-     buddies 1, scorer 1).
+     buddies 1, scorer 1, refinement 1).
   14 (after phase 12, before phase 15) the bench layer's entry points in
      this process:
      foundpose_torch.benchmarks.bench at batch 128 with the stage split
@@ -167,7 +176,8 @@ Phases (each prints one line and raises on failure):
      facet's layers at [128, 905, 384] and [128, 901, 1024] on the step's
      crops, the buddies and the scorer on the operands one step passes
      them (128 crops x 5 templates); then the launches from zero over one
-     step (block 10 or 18, buddies 1, scorer 1, nothing else).
+     step (block 10 or 18, buddies 1, scorer 1, refinement 1, nothing
+     else).
      Then benchmarks.latency with LAT_REPS = 20 (PoseEngine at
      batch 1, 8, 16) and benchmarks.featuremetric_bench (refinement off
      and on at batch 64 and 128, peak memory): every key of each report,
@@ -183,13 +193,15 @@ Phases (each prints one line and raises on failure):
      (InferOpts' defaults: unfused f32 ViT on the attention kernel, exact
      top-k, RANSAC 200): per dataset crops/s by host clock, each object's
      load seconds (load_repre and the copy to the card), peak memory,
-     launches from zero (attention 10 and scorer 1 a batch, block and
-     buddies 0), one BOP19 CSV whose rows are the detections that solved.
+     launches from zero (attention 10, scorer 1, refinement 1 a batch,
+     block and buddies 0), one BOP19 CSV whose rows are the detections
+     that solved.
      (b) infer at configs/infer/tudl.json and ycbv.json, infer_multi_object
      at configs/infer/tless.json over all 30 objects (batches mixing
      objects; kernel 3 reads banks indexed by object and template): the
      same figures, the mixed load's peak memory before the first batch
-     (< 30 GB), launches (block 10, buddies 1, scorer 1 a batch); the card
+     (< 30 GB), launches (block 10, buddies 1, scorer 1, refinement 1 a
+     batch); the card
      against the CPU through infer_multi_object at tless.json on image 0's
      first 4 detections with the same draws (phase 9's bounds).
   16 (after phase 15, before phase 11) the micro-benches in this process:
@@ -197,7 +209,8 @@ Phases (each prints one line and raises on failure):
      micro_retrieval at their own sizes (each substage's CUDA-event ms,
      device ms under torch.profiler or "not measured", host launch calls,
      and the kernel launches of one call: the scorer once in both RANSAC
-     substages, the buddies kernel once in real_match_batch),
+     substages, the refinement once in ransac_full(+lm), the buddies
+     kernel once in real_match_batch),
      vit_stage_bench at batch 64 (block 10 launches a call) and
      cli_throughput on 8 images (its split, gen_templates and gen_repre
      build, two infer passes at batch 64): every key, every time finite.
@@ -207,13 +220,15 @@ Phases (each prints one line and raises on failure):
      defaults. (d) first: kernels 3 and 2 against their twins (phase 2's
      gates) on the operands one fast-leg call passes them on (a)'s world
      and queries, the scorer at 400 and at 100 hypotheses, each call's
-     launches counted from zero (buddies 1, scorer 1). (a) run_parity:
+     launches counted from zero (buddies 1, scorer 1, refinement 1). (a)
+     run_parity:
      798 templates of 400 features, 256 dims, 2,048 words, 4,000 points, 100
      crops, top-5 / 300 buddies / 400 hypotheses; the host replica (numpy
      kNN, cv2 RANSAC and LM) against the port's exact f32 and fast bf16
      legs on the card: AR deltas <= 0.01, idf max |delta| < 1e-5,
      descriptor cosine > 0.999; the replica's seconds a crop, each leg's
-     wall, launches from zero (exact: scorer 1; fast: buddies 1, scorer 1).
+     wall, launches from zero (exact: scorer 1, refinement 1; fast: buddies
+     1, scorer 1, refinement 1).
      (b) featuremetric_leg at 100 crops: refinement off vs on, the rules of
      tests/test_cross_parity.py (>= 20 coarse successes, recall within one
      crop, median rotation and translation errors not worse). (c) the three
@@ -222,7 +237,8 @@ Phases (each prints one line and raises on failure):
      2 seeds of 96 templates, 4 cells each; select's oracle comes from the
      harness's memo of lm's: both score the same worlds): each one's JSON
      line, every cell's AR, wall ms and
-     launches (buddies 1, scorer 1, or 2 for a two-phase cell); every AR
+     launches (buddies 1, refinement 1, scorer 1, or 2 for a two-phase
+     cell); every AR
      finite, each oracle AR >= 0.9; the pick is reported, not gated.
   18 (after phase 17, before phase 12 (e) and phase 11) the ViT parity leg
      and the reference replicas (foundpose_torch/benchmarks/hf_dinov2,
@@ -352,6 +368,9 @@ KERNEL_SOURCES = {
     "ransac_score": ("foundpose_torch/csrc/score.cu", "foundpose_tpu/pose/pnp.py:35"),
     "attention": ("foundpose_torch/csrc/attention.cu", "foundpose_tpu/ops/attention.py:31"),
     "micro_mm": ("foundpose_torch/csrc/micro_mm.cu", "benchmarks/micro_int8.py:58"),
+    "refine": ("foundpose_torch/csrc/refine.cu",
+               "none: foundpose_tpu/pose/pnp.py:554 lo_refine and :623 refine_pose_lm run "
+               "under XLA"),
 }
 
 
@@ -449,7 +468,8 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     from foundpose_torch.benchmarks import bench
     from foundpose_torch.models import dinov2
     from foundpose_torch.ops import sampling
-    from foundpose_torch.pipeline.inference import inference_config_from_opts, preprocess_crops
+    from foundpose_torch.pipeline.inference import (inference_config_from_opts, pose_from_crops,
+                                                    preprocess_crops)
 
     gen = torch.Generator(device=device).manual_seed(11)
     b = 16
@@ -483,6 +503,26 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     }
     result["attention"] = attention_vs_twin(torch, model, vit_cfg, crops)
     result["micro_mm"] = probe_vs_twin(torch, device)
+
+    # --- LO/LM refinement: the winners of a lmo.json request of 16 crops
+    # and of a batch of 128 (an offline step's), each crop's best of its
+    # top-5 sets of 300 correspondences, on a world whose first templates
+    # are those crops, so that the winners pose (with random crops and the
+    # synthetic world, a winner has 2-4 inliers and no pose to compare).
+    refine = {}
+    for n_crops in (b, 128):
+        crops, masks, cams = main_path_inputs(torch, device, n_crops)
+        world = batch_world_repre(
+            torch, model, config, ((crops[i : i + b], masks[i : i + b], cams.index(slice(i, i + b)))
+                                   for i in range(0, n_crops, b)), 5, device)
+        world = world.cast_banks(config.compute_dtype)
+        args = captured_operands(lambda: pose_from_crops(
+            model, crops, masks, cams, world, config,
+            generator=torch.Generator(device=device).manual_seed(1)))
+        refine[n_crops] = refine_check(
+            torch, args["refine"], 2, f"(the winners of {n_crops} crops at lmo.json)")
+        del world, args
+    result["refine"] = dict(refine[b], b128=refine[128])
     return result
 
 
@@ -668,6 +708,85 @@ def scorer_check(torch, ops, thr, phase, what):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
 
 
+# The LO/LM kernel against its twin (`refine_check`): counts and inlier
+# masks equal in every set; R and t (metres in the main path's worlds)
+# within these bounds in the sets the refinement can pose, those with at
+# least REFINE_POSED_INLIERS inliers after LO (the sums run in another
+# order, and the 12x12 refits of fewer points amplify float32 rounding),
+# which must be at least half the sets.
+REFINE_R_ATOL, REFINE_T_ATOL = 1e-4, 5e-5
+REFINE_POSED_INLIERS = 12
+# f32 operations a point on each pass over a set's points: the 40 DLT
+# feature sums (two each) and the point's projection, or LM's 28 sums with
+# its Jacobian. Passes: the Hartley mean and spread, two for each LO refit
+# (its sums, its count), the final inliers with LM's first sums, one for
+# each LM step.
+REFINE_FLOPS_PER_POINT_PASS = 120
+
+
+def refine_check(torch, args, phase, what):
+    """refine_lo_lm (csrc/refine.cu) against refine_lo_lm_plain on the
+    arguments `args` one call received: counts and inlier masks equal in
+    every set, R and t within REFINE_R_ATOL and REFINE_T_ATOL in the posed
+    sets; the kernel's device time under torch.profiler (mean of 20
+    launches), the CUDA-event time of whole wrapper calls and the twin's,
+    the device kernels of one twin call, and the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundpose_torch.benchmarks import block_split, score_time
+    from foundpose_torch.pose import pnp
+
+    s, n = args["pts2d"].shape[:2]
+    lo, lm = args["lo_iters"], args["lm_iters"]
+    got = pnp.refine_lo_lm(**args)
+    ref = pnp.refine_lo_lm_plain(**args)
+    counts_equal = bool(torch.equal(got[3], ref[3]))
+    masks_equal = bool(torch.equal(got[2], ref[2]))
+    posed = ref[3] >= REFINE_POSED_INLIERS
+    r_err = (got[0] - ref[0]).abs().amax((1, 2))
+    t_err = (got[1] - ref[1]).abs().amax(1)
+    r_max = float(r_err[posed].max()) if bool(posed.any()) else 0.0
+    t_max = float(t_err[posed].max()) if bool(posed.any()) else 0.0
+    call = lambda: pnp.refine_lo_lm(**args)
+    twin = lambda: pnp.refine_lo_lm_plain(**args)
+    try:
+        dev_ms = score_time.device_ms(call, kernel="refine_kernel")
+    except block_split.ProfilerLostKernels:
+        if phase == 2:
+            raise
+        dev_ms = "not measured"
+    event_ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, twin, reps=5, warm=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        twin()
+        torch.cuda.synchronize()
+    twin_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    passes = (2 + 2 * lo if lo else 0) + 1 + lm
+    inputs = [args[k] for k in ("r", "t", "pts2d", "pts3d", "valid", "k_f", "k_c", "inliers",
+                                "count")]
+    bms, by = bound(REFINE_FLOPS_PER_POINT_PASS * s * n * passes, nbytes(*inputs, *got), "f32")
+    log(phase, f"refine {s} sets x {n} pts, LO {lo} LM {lm} {what}: counts equal {counts_equal}, "
+               f"masks equal {masks_equal}; {int(posed.sum())} sets with >= "
+               f"{REFINE_POSED_INLIERS} inliers (post-LO inliers median "
+               f"{float(ref[3].median()):.0f}, max {float(ref[3].max()):.0f}): R max abs "
+               f"{r_max:.2e} (tol {REFINE_R_ATOL}), t {t_max:.2e} (tol {REFINE_T_ATOL}); over "
+               f"every set R {float(r_err.max()):.2e}, t {float(t_err.max()):.2e}; kernel device "
+               f"{fmt_ms(dev_ms, 4)} ms (torch.profiler, 20 launches), wrapper {event_ms:.4f} ms "
+               f"(CUDA events), twin {plain_ms:.3f} ms ({twin_kernels} device kernels a call); "
+               f"bound {bms:.5f} ms ({by})")
+    check(counts_equal and masks_equal and r_max <= REFINE_R_ATOL and t_max <= REFINE_T_ATOL,
+          f"refine kernel disagrees with its twin {what}")
+    check(int(posed.sum()) >= s // 2, f"refine {what}: fewer than half the sets pose")
+    return dict(shape=[s, n], lo_iters=lo, lm_iters=lm, counts_equal=counts_equal,
+                masks_equal=masks_equal, posed_sets=int(posed.sum()), max_abs_err=r_max,
+                t_max_abs_err=t_max, r_max_abs_err_all_sets=float(r_err.max()),
+                t_max_abs_err_all_sets=float(t_err.max()), ms=dev_ms, event_ms=event_ms,
+                plain_ms=plain_ms, twin_kernels=twin_kernels, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
 def attention_vs_twin(torch, model, vit_cfg, crops):
     """The attention kernel on the unfused f32 path's layer-0 q, k, v
     [16, 6, 905, 64] of the same crops, at f32 (the path) and bf16."""
@@ -832,8 +951,8 @@ def phase_main_path(torch, model, repre, config, device, phase=3, label="lmo.jso
         check(bool(torch.isfinite(v.float()).all()), f"{name} not finite")
     check(tuple(outs.R_m2w.shape) == (b, 3, 3) and tuple(outs.template_ids.shape)
           == (b, config.top_n_templates), "output shapes")
-    check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
-          f"kernels not launched: {launches}")
+    check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score", "refine"))
+          and launches["refine"] == launches["ransac_score"], f"kernels not launched: {launches}")
 
     splits = np.array([stage_split(torch, model, repre, config, crops, masks, cams, rgen)
                        for _ in range(5)])
@@ -1177,7 +1296,8 @@ def phase_serving(torch, params, device):
     per_request = launches["attention"] / requests
     check(launches["attention"] == requests * (vit_cfg.layer + 1),
           f"attention launched {launches['attention']} times in {requests} requests")
-    check(launches["vit_block"] == 0 and launches["buddies"] == 0 and launches["ransac_score"] > 0,
+    check(launches["vit_block"] == 0 and launches["buddies"] == 0 and launches["ransac_score"] > 0
+          and launches["refine"] == launches["ransac_score"],
           f"launches on the serving path: {launches}")
     q1, med, q3 = (float(v) for v in np.percentile(lat, [25, 50, 75]))
     res = dict(
@@ -1224,10 +1344,10 @@ def phase_serving(torch, params, device):
     res["host_syncs_before_fetch"] = {
         "lmo_exact.json": dispatch_sync_check(
             torch, engine, image, boxes,
-            dict(attention=dinov2.facet_depth(vit_cfg), ransac_score=1)),
+            dict(attention=dinov2.facet_depth(vit_cfg), ransac_score=1, refine=1)),
         "lmo.json switches": dispatch_sync_check(
             torch, fast, image, boxes,
-            dict(vit_block=dinov2.facet_depth(fast_vit), buddies=1, ransac_score=1)),
+            dict(vit_block=dinov2.facet_depth(fast_vit), buddies=1, ransac_score=1, refine=1)),
     }
     del fast
     log(5, "one estimate() up to its fetch under the CUDA sync debug mode \"error\": 0 host "
@@ -1406,8 +1526,19 @@ def object_crops(opts, lid, image_keys):
 
 def crop_world_repre(torch, model, config, pendings, seed, device, num_templates=798, mix=(),
                      knn_k=None):
+    """batch_world_repre over the pending crops (pipeline/infer's), 16 a
+    batch."""
+    from foundpose_torch.pipeline import infer
+
+    batches = (infer.stack_batch(pendings[s : s + 16], device) for s in range(0, len(pendings), 16))
+    return batch_world_repre(torch, model, config, batches, seed, device, num_templates, mix, knn_k)
+
+
+def batch_world_repre(torch, model, config, batches, seed, device, num_templates=798, mix=(),
+                      knn_k=None):
     """`synthetic.realistic_repre(seed, num_templates=...)` (LM-O scale by
-    default) whose first templates are the given crops themselves: each
+    default) whose first templates are the crops of `batches`, an iterable
+    of (crops, masks, crop cameras), in order: each
     crop's PCA-projected ViT features at the grid cells on its mask,
     lifted to 3D in its crop camera at depths 0.4-0.6, with the visual
     words drawn from those features (all of them where the codebook has
@@ -1421,7 +1552,7 @@ def crop_world_repre(torch, model, config, pendings, seed, device, num_templates
     from foundpose_torch.models import dinov2
     from foundpose_torch.ops import sampling, tfidf
     from foundpose_torch.ops.pca import pca_transform
-    from foundpose_torch.pipeline import infer, inference
+    from foundpose_torch.pipeline import inference
     from foundpose_torch.synthetic import realistic_repre
 
     base = realistic_repre(seed, device, num_templates=num_templates,
@@ -1430,9 +1561,8 @@ def crop_world_repre(torch, model, config, pendings, seed, device, num_templates
     t, fmax, d = base.bank_feats.shape
     pts = sampling.grid_points(config.crop_size, config.grid_cell_size, device=device)
     cells = []  # (features [m, d], vertices [m, 3]) of each crop's cells on its mask
-    for s in range(0, len(pendings), 16):
-        chunk = pendings[s : s + 16]
-        crops, masks, cams = infer.stack_batch(chunk, device)
+    for crops, masks, cams in batches:
+        b = crops.shape[0]
         fm = dinov2.extract_facet(model, inference.preprocess_crops(crops, config))[
             "feature_maps"].float()
         feats = pca_transform(base.raw_projector,
@@ -1440,9 +1570,9 @@ def crop_world_repre(torch, model, config, pendings, seed, device, num_templates
                                                             config.grid_cell_size))
         valid = sampling.points_in_mask(pts, masks.float())
         rays = torch.cat([(pts - cams.c[:, None]) / cams.f[:, None],
-                          torch.ones_like(pts[..., :1]).expand(len(chunk), -1, 1)], dim=-1)
-        depth = 0.4 + 0.2 * torch.rand(len(chunk), pts.shape[0], 1, generator=g, device=device)
-        cells += [(feats[i, valid[i]], (rays[i] * depth[i])[valid[i]]) for i in range(len(chunk))]
+                          torch.ones_like(pts[..., :1]).expand(b, -1, 1)], dim=-1)
+        depth = 0.4 + 0.2 * torch.rand(b, pts.shape[0], 1, generator=g, device=device)
+        cells += [(feats[i, valid[i]], (rays[i] * depth[i])[valid[i]]) for i in range(b)]
     bank_feats, bank_verts = base.bank_feats.clone(), base.bank_vertices.clone()
     bank_mask = base.bank_mask.clone()
     n = len(cells)
@@ -1583,7 +1713,7 @@ def phase_cli(torch, params, vit_cfg, device, lmo_median_s):
                 wall = time.perf_counter() - t0
             launches = read_counts()
             check(counts == {lid: CLI_IMAGES * CLI_DETS for lid in CLI_LIDS}, f"{name} counts {counts}")
-            check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+            check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score", "refine")),
                   f"{name}: kernels not launched: {launches}")
             res[name] = dict(wall_s=wall, crops=n_crops, crops_per_s=n_crops / wall,
                              launches=launches, **host_split(cap))
@@ -2282,7 +2412,8 @@ def mesh_stage_diffs(torch, mesh, model, repre, crops, masks, cams, config, draw
     res["matching"] = max(diff(getattr(cors_rows, f.name), getattr(cors, f.name)[rows])
                           for f in dataclasses.fields(cors))
     # solve_batch's parts: RANSAC (DLT and the scorer), then on each crop's
-    # winning set (picked as solve_batch picks) the LO refits and LM.
+    # winning set (picked as solve_batch picks) the LO refits and LM, one
+    # refine_lo_lm call as refine_winner makes it.
     flat = [a.flatten(0, 1) for a in (cors.coord_2d, cors.coord_3d, cors.valid, draws)]
     cf, cc = (x.float()[:, None].expand(-1, n, 2).flatten(0, 1) for x in (cams.f, cams.c))
     sets = slice(rows.start * n, rows.stop * n)
@@ -2301,14 +2432,12 @@ def mesh_stage_diffs(torch, mesh, model, repre, crops, masks, cams, config, draw
     pts = [cors.coord_2d[ar, best].float(), cors.coord_3d[ar, best].float(),
            cors.valid[ar, best]]
     cam = [cams.f.float(), cams.c.float()]
-    lo = [pnp.lo_refine(*(a[s] for a in win[:2] + pts + cam),
-                        inlier_thresh=config.pnp_inlier_thresh, iters=config.pnp_lo_iters,
-                        inliers=win[2][s], count=win[3][s]) for s in (slice(None), rows)]
-    res["solve: LO refits"] = max(diff(a, b[rows]) for a, b in zip(lo[1], lo[0]))
-    lm = [pnp.refine_pose_lm_guarded(*(a[s] for a in list(lo[0][:2]) + pts[:2]), lo[0][2][s],
-                                     *(a[s] for a in cam), iters=config.lm_iters)
-          for s in (slice(None), rows)]
-    res["solve: LM"] = max(diff(a, b[rows]) for a, b in zip(lm[1], lm[0]))
+    refined = [pnp.refine_lo_lm(*(a[s] for a in win[:2] + pts + cam + win[2:]),
+                                config.pnp_inlier_thresh, config.pnp_lo_iters,
+                                config.lm_iters if config.pnp_refine_lm else 0)
+               for s in (slice(None), rows)]
+    res["solve: LO refits and LM (refine_lo_lm)"] = max(
+        diff(a, b[rows]) for a, b in zip(refined[1], refined[0]))
     out = inference.solve_batch(fm, valid, tids, tscores, cors, cams, repre, config, draws=draws)
     out_rows = inference.solve_batch(
         fm[rows], valid[rows], tids[rows], tscores[rows], take(cors, rows), cams.index(rows),
@@ -2501,7 +2630,7 @@ def phase_mesh(torch, params, vit_cfg, device):
             f"{r['vs_single']}; launches {r['launches']}; {MESH_TIMED} requests ms median "
             f"{r['median_s'] * 1e3:.2f} (min {min(r['latency_s']) * 1e3:.2f})")
     check(r["vs_single"]["ok"], "the NCCL (1, 1) step differs from the single-device step")
-    check(all(r["launches"][k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+    check(all(r["launches"][k] > 0 for k in ("vit_block", "buddies", "ransac_score", "refine")),
           f"NCCL step launches {r['launches']}")
     for name in MESH_STEPS:
         per_rank = [rk[name] for rk in ranks]
@@ -2509,7 +2638,8 @@ def phase_mesh(torch, params, vit_cfg, device):
             rk["vs_single"] = compare_poses(rk.pop("outputs"), refs[name],
                                             all_crops=name.startswith("step"))
         tp = name.startswith("TP")
-        need = ("attention", "ransac_score") if tp else ("vit_block", "buddies", "ransac_score")
+        need = (("attention", "ransac_score", "refine") if tp
+                else ("vit_block", "buddies", "ransac_score", "refine"))
         res[name] = per_rank
         log(11, f"(b) {name}, 16 crops, per rank [{MESH_LABEL}]: "
                 + "; ".join(f"rank {i} {rk['coords']}: launches {rk['launches']}, median "
@@ -2574,7 +2704,8 @@ def phase_mesh(torch, params, vit_cfg, device):
             f"{cli[0]['launches']}")
     check(cmp["ok"] and cmp["both_succeeded"] > 0, "the mesh CLI differs from the single-device CLI")
     check(len(mesh_records) == len(single_records) > 0, "estimated-poses.json records differ")
-    check(all(c["launches"][k] > 0 for c in cli for k in ("vit_block", "buddies", "ransac_score")),
+    check(all(c["launches"][k] > 0 for c in cli
+              for k in ("vit_block", "buddies", "ransac_score", "refine")),
           "mesh CLI kernels not launched")
     log(11, f"setup {res['setup_s']:.1f} s, 4 ranks {res['ranks_wall_s']:.1f} s (spawn, loads, "
             f"all of (b))")
@@ -2739,7 +2870,8 @@ def vitg_tp(torch, tp_state, device):
         check(rk["vs_single"]["ok"] and rk["vs_single"]["both_succeeded"] > 0,
               f"ViT-G TP rank {i} differs from the single-device step: {rk['vs_single']}")
         check(rk["launches"]["attention"] == 2 and rk["launches"]["vit_block"] == 0
-              and rk["launches"]["ransac_score"] > 0, f"ViT-G TP rank {i} launched {rk['launches']}")
+              and rk["launches"]["ransac_score"] > 0 and rk["launches"]["refine"] > 0,
+              f"ViT-G TP rank {i} launched {rk['launches']}")
     return res
 
 
@@ -2807,7 +2939,8 @@ def phase_vitg(torch, device):
         res["main_path"]["launches_one_request"] = one
         log(12, f"(c) launches from zero over one request: {one}")
         check(one["vit_block"] == vit_cfg.layer + 1 and one["buddies"] == 1
-              and one["ransac_score"] == 1, f"ViT-G request launches {one}")
+              and one["ransac_score"] == 1 and one["refine"] == 1,
+              f"ViT-G request launches {one}")
         del repre, crops, masks, cams
 
         # (d) One registration chunk of the builder.
@@ -2874,7 +3007,8 @@ def phase_vitl(torch, device):
         res["main_path"]["launches_one_request"] = one
         log(13, f"(b) launches from zero over one request: {one}")
         check(one["vit_block"] == dinov2.facet_depth(vit_cfg) == 18 and one["buddies"] == 1
-              and one["ransac_score"] == 1, f"ViT-L request launches {one}")
+              and one["ransac_score"] == 1 and one["refine"] == 1,
+              f"ViT-L request launches {one}")
     del model, repre
     torch.cuda.empty_cache()
     return res
@@ -2894,15 +3028,17 @@ LAT_REPS = 20
 
 
 def captured_operands(step):
-    """The arguments one call of `step()` passes to the buddies kernel and
-    to the scorer, by kernel name: cycle_distances' five operands, and
-    score_hypotheses' as (a dict of its operands, the inlier threshold)."""
+    """The arguments one call of `step()` passes to the buddies kernel, to
+    the scorer and to the LO/LM refinement, by kernel name:
+    cycle_distances' five operands, score_hypotheses' as (a dict of its
+    operands, the inlier threshold), and refine_lo_lm's as a dict of all
+    its arguments."""
     import inspect
 
     from foundpose_torch.pose import corresp, pnp
 
     got = {}
-    originals = corresp.cycle_distances, pnp.score_hypotheses
+    originals = corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm
 
     class Grab:
         """Records a wrapper's arguments and calls it; its attributes (the
@@ -2924,13 +3060,15 @@ def captured_operands(step):
 
     corresp.cycle_distances = Grab("buddies", originals[0])
     pnp.score_hypotheses = Grab("ransac_score", originals[1])
+    pnp.refine_lo_lm = Grab("refine", originals[2])
     try:
         step()
     finally:
-        corresp.cycle_distances, pnp.score_hypotheses = originals
+        corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm = originals
     ops = dict(got["ransac_score"])
     thr = ops.pop("inlier_thresh")
-    return {"buddies": tuple(got["buddies"].values()), "ransac_score": (ops, thr)}
+    return {"buddies": tuple(got["buddies"].values()), "ransac_score": (ops, thr),
+            "refine": dict(got["refine"])}
 
 
 def bench_kernels(torch, s, label):
@@ -2938,7 +3076,7 @@ def bench_kernels(torch, s, label):
     gives them, with phase 2's gates: the block through the facet's layers
     on the step's own crops, the buddies and the scorer on the operands one
     step passes them; then the launches from zero over one step (the
-    facet's blocks, buddies 1, scorer 1, nothing else)."""
+    facet's blocks, buddies 1, scorer 1, refinement 1, nothing else)."""
     from foundpose_torch.models import dinov2
     from foundpose_torch.pipeline import inference
 
@@ -2960,7 +3098,7 @@ def bench_kernels(torch, s, label):
     launches = read_counts()
     log(14, f"bench {label} batch {s.batch}: launches from zero over one step {launches}")
     check_launches(launches, dict(vit_block=dinov2.facet_depth(s.vit_cfg), buddies=1,
-                                  ransac_score=1), f"bench {label} step")
+                                  ransac_score=1, refine=1), f"bench {label} step")
     res["launches"] = launches
     return res
 
@@ -3188,7 +3326,8 @@ def phase_datasets(torch, params, vit_cfg, device):
             check(sorted(int(k) for k in r["counts"]) == bop.OBJECT_IDS[ds]
                   and rows == r["successes"], f"sweep {ds}: {r['counts']}, {rows} CSV rows for "
                   f"{r['successes']} solved")
-            check_launches(r["launches"], dict(attention=10 * nb, ransac_score=nb), f"sweep {ds}")
+            check_launches(r["launches"], dict(attention=10 * nb, ransac_score=nb, refine=nb),
+                           f"sweep {ds}")
         check(sum(runs[ds]["successes"] for ds in SWEEP_DATASETS) > 0, "no detection solved")
 
         # (b) each dataset's own configuration: infer at tudl.json and
@@ -3210,8 +3349,8 @@ def phase_datasets(torch, params, vit_cfg, device):
                     f"{r['held_at_first_batch_bytes'] / 2**30:.2f} GiB, over the run "
                     f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['successes']} solved; launches "
                     f"{r['launches']}")
-            check_launches(r["launches"], dict(vit_block=10 * nb, buddies=nb, ransac_score=nb),
-                           f"{what} {ds}.json")
+            check_launches(r["launches"], dict(vit_block=10 * nb, buddies=nb, ransac_score=nb,
+                                               refine=nb), f"{what} {ds}.json")
         mixed = res["tless.json"]
         check(len(mixed["counts"]) == 30
               and mixed["peak_before_first_batch_bytes"] < MIXED_PEAK_LIMIT_BYTES,
@@ -3285,7 +3424,7 @@ def phase_micro(torch):
     res = {}
     for name, run, expect in (
             ("micro_pnp", micro_pnp.run, {"ransac_no_lm": dict(ransac_score=1),
-                                          "ransac_full(+lm)": dict(ransac_score=1)}),
+                                          "ransac_full(+lm)": dict(ransac_score=1, refine=1)}),
             ("micro_buddies", micro_buddies.run, {"real_match_batch": dict(buddies=1)}),
             ("micro_retrieval", micro_retrieval.run, {})):
         t0 = time.perf_counter()
@@ -3330,7 +3469,7 @@ def phase_micro(torch):
             f"{r['seconds']:.1f} s")
     check(set(r) - {"launches", "seconds"} == CLI_BENCH_KEYS and r["crops"] > 0
           and np.isfinite(r["value"]) and r["value"] > 0, f"cli_throughput report {r}")
-    check(all(r["launches"][k] > 0 for k in ("vit_block", "buddies", "ransac_score")),
+    check(all(r["launches"][k] > 0 for k in ("vit_block", "buddies", "ransac_score", "refine")),
           f"cli_throughput launched {r['launches']}")
     return res
 
@@ -3383,7 +3522,7 @@ def phase_parity(torch, device):
         reset_counts()
         ops = captured_operands(lambda: cross_parity.port_poses(fmaps, masks, world[0], cfg, device))
         launches = read_counts()
-        check_launches(launches, dict(buddies=1, ransac_score=1),
+        check_launches(launches, dict(buddies=1, ransac_score=1, refine=1),
                        f"cross-parity fast-leg call at H {h}")
         if h == 400:
             kern["buddies"] = dict(buddies_vs_twin(torch, *ops["buddies"], 17),
@@ -3417,10 +3556,11 @@ def phase_parity(torch, device):
     check(not cross_parity.ar_gate_failed(rep), "cross_parity: an AR delta exceeds 1 point")
     check(rep["idf_max_delta"] < PARITY_IDF_ATOL and rep["template_desc_cosine_min"] > PARITY_DESC_COS,
           "cross_parity: the offline tf-idf disagrees with the replica's")
-    check(rep["launches_exact"] == {"buddies": 0, "ransac_score": 1}
-          and rep["launches_fast"] == {"buddies": 1, "ransac_score": 1},
+    check(rep["launches_exact"] == {"buddies": 0, "ransac_score": 1, "refine": 1}
+          and rep["launches_fast"] == {"buddies": 1, "ransac_score": 1, "refine": 1},
           f"cross_parity legs launched {rep['launches_exact']} / {rep['launches_fast']}")
-    check_launches(rep["launches"], dict(buddies=1, ransac_score=2), "cross_parity run_parity")
+    check_launches(rep["launches"], dict(buddies=1, ransac_score=2, refine=2),
+                   "cross_parity run_parity")
 
     # (b) featuremetric_leg at 100 crops: tests/test_cross_parity.py's rules.
     reset_counts()
@@ -3440,7 +3580,7 @@ def phase_parity(torch, device):
           and fm["median_rot_err_deg_on"] <= fm["median_rot_err_deg_off"]
           and fm["median_t_err_mm_on"] <= fm["median_t_err_mm_off"],
           "featuremetric refinement did not improve the poses")
-    check_launches(fm["launches"], dict(ransac_score=2), "featuremetric_leg")
+    check_launches(fm["launches"], dict(ransac_score=2, refine=2), "featuremetric_leg")
 
     # (c) The three sweeps at their JAX defaults but for the crops
     # (SWEEP_CROPS); `picked` is a finding.
@@ -3462,10 +3602,11 @@ def phase_parity(torch, device):
         check(all(np.isfinite(ar) for _, _, ar, _, _ in cells)
               and min(oracle if isinstance(oracle, list) else [oracle]) >= ORACLE_AR_MIN,
               f"{name}: an AR is not finite or the oracle AR is below {ORACLE_AR_MIN}")
-        expect = {"buddies": 0, "ransac_score": 0}
+        expect = {"buddies": 0, "ransac_score": 0, "refine": 0}
         for cell, _, _, _, n in cells:
             want = {"buddies": 1,
-                    "ransac_score": 2 if cell.startswith("select") and cell != "select0" else 1}
+                    "ransac_score": 2 if cell.startswith("select") and cell != "select0" else 1,
+                    "refine": 1}
             check(n == want, f"{name} {cell} launched {n}, expected {want}")
             expect = {k: expect[k] + want[k] for k in want}
         check_launches(launches, expect, name)
@@ -3681,14 +3822,16 @@ def main():
         json.dump(report, f, indent=1)
     # Each kernel's launches come from the run of its own path, counted from
     # zero: the lmo.json main path (phase 3), the lmo_exact.json serving path
-    # (phase 5), the probe's entry point (phase 6), and for attention this
-    # slice's path, gen_repre at configs/gen_repre/lmo.json (phase 10).
+    # (phase 5), the probe's entry point (phase 6), for attention this
+    # slice's path, gen_repre at configs/gen_repre/lmo.json (phase 10), and
+    # for the refinement the lmo.json main path's winners (phase 3).
     path_launches = {
         "vit_block": report["main_path"]["launches"]["vit_block"],
         "buddies": report["main_path"]["launches"]["buddies"],
         "ransac_score": report["main_path"]["launches"]["ransac_score"],
         "attention": report["builder"]["lmo"]["launches"]["attention"],
         "micro_mm": report["probe"]["launches"]["mm_int8"],
+        "refine": report["main_path"]["launches"]["refine"],
     }
     mesh = report["mesh"]
     by_path = {"lmo.json": report["main_path"]["launches"],
@@ -3752,6 +3895,9 @@ def main():
             if label.startswith(name):
                 entry[f"cross_parity{label[len(name):]}"] = {
                     key: k17[key] for key in keys + ("launches",)}
+        if name == "refine":  # the winners of 128 crops (phase 2; 16 above)
+            entry["b128"] = {key: k["b128"][key] for key in keys}
+            entry["b128"]["launches"] = report["bench"]["kernels vits14 b128"]["launches"][name]
         if name == "attention":  # on the ViT parity leg's [2, 6, 1374, 64] (phase 18)
             k18 = report["reference"]["vit_parity_leg"]["kernel"]
             entry["vit_parity_leg_518"] = {key: k18[key] for key in keys + ("launches",)}

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "fp_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     "fp_mm_bf16": [_P] * 3 + [_I] * 3 + [_P],
     "fp_mm_int8": [_P] * 3 + [_I] * 3 + [_P],
+    "fp_refine_lo_lm": [_P] * 9 + [_F, _F, _I, _I] + [_P] * 4 + [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

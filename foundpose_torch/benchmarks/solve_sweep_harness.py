@@ -6,8 +6,8 @@ that tests can take one at a time:
   oracle_ar     the replica's AR on them, at the full reference budget
   cell_ar       the port's AR on them under one cell's solve budget, on
                 `device` ("cuda" by default), with the cell's wall between
-                `torch.cuda.synchronize()` calls and its scorer and buddies
-                launches counted from zero
+                `torch.cuda.synchronize()` calls and its scorer, buddies
+                and refinement launches counted from zero
   admissible    the gate: every seed's AR within 1 point of that seed's
                 oracle AND of the default cell
 

@@ -15,8 +15,9 @@ Spans (utils/profiling, recorded only while a recording is open):
 "retrieval", "match" and "solve" (`solve_batch`). In the solve,
 `solve_batch` opens "ransac" (the RANSAC over every set, the pick of each
 crop's winner and the two-phase second pass) and `refine_winner` opens
-"refine" (with "lo", "lm" and "featuremetric" as configured); the
-selection, `estimate_score` and the world frame are the solve's self time.
+"refine" (with "lo_lm", one `pnp.refine_lo_lm` call, and "featuremetric"
+as configured); the selection, `estimate_score` and the world frame are the
+solve's self time.
 
 Randomness: RANSAC draws come from `draws` [B, top_n, H, 6] when given,
 else from `generator`. The JAX package derives them from one PRNG key; the
@@ -245,10 +246,10 @@ def full_budget_winner(
 def refine_winner(r_best, t_best, inliers_best, count_best, c2d, c3d, cvalid,
                   cam_f, cam_c, config: InferenceConfig, fmap=None, project=None,
                   winner_bank=None):
-    """Winner-only LO-RANSAC, then LM kept where finite, then (when
-    configured) featuremetric refinement. Returns (R, t, count) with the
-    post-LO base-threshold inlier count, so success and quality describe
-    the emitted pose.
+    """Winner-only LO-RANSAC, then LM kept where finite (both in one
+    `pnp.refine_lo_lm` call), then (when configured) featuremetric
+    refinement. Returns (R, t, count) with the post-LO base-threshold
+    inlier count, so success and quality describe the emitted pose.
 
     fmap [B, Hf, Wf, D_raw]: the crops' raw f32 feature maps; project: the
     PCA projection for them, or None; winner_bank: () -> (vertices, feats,
@@ -257,18 +258,12 @@ def refine_winner(r_best, t_best, inliers_best, count_best, c2d, c3d, cvalid,
     with profiling.span("refine"):
         c2d = c2d.float()
         c3d = c3d.float()
-        if config.pnp_lo_iters > 0:
-            with profiling.span("lo"):
-                r_best, t_best, inliers_best, count_best = pnp_mod.lo_refine(
-                    r_best, t_best, c2d, c3d, cvalid, cam_f, cam_c,
-                    inlier_thresh=config.pnp_inlier_thresh, iters=config.pnp_lo_iters,
-                    inliers=inliers_best, count=count_best,
-                )
-        if config.pnp_refine_lm:
-            with profiling.span("lm"):
-                r_best, t_best = pnp_mod.refine_pose_lm_guarded(
-                    r_best, t_best, c2d, c3d, inliers_best, cam_f, cam_c,
-                    iters=config.lm_iters,
+        if config.pnp_lo_iters > 0 or config.pnp_refine_lm:
+            with profiling.span("lo_lm"):
+                r_best, t_best, inliers_best, count_best = pnp_mod.refine_lo_lm(
+                    r_best, t_best, c2d, c3d, cvalid, cam_f, cam_c, inliers_best, count_best,
+                    config.pnp_inlier_thresh, config.pnp_lo_iters,
+                    config.lm_iters if config.pnp_refine_lm else 0,
                 )
         if config.refine_featuremetric:
             with profiling.span("featuremetric"):

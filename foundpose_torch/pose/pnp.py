@@ -3,8 +3,10 @@
 
 Every function takes a leading batch of correspondence sets [S, ...] where
 the JAX package vmaps one set at a time. Hypotheses are scored by
-`score_hypotheses`: the hand-written CUDA kernel (csrc/score.cu) on a GPU,
-its plain twin on a CPU, chosen by the tensors' device.
+`score_hypotheses`, and the winners' LO refits and LM steps run in
+`refine_lo_lm`: each a hand-written CUDA kernel (csrc/score.cu,
+csrc/refine.cu) on a GPU and its plain twin on a CPU, chosen by the
+tensors' device.
 
 The minimal solves keep the JAX package's lane-major unrolled Cholesky (its
 floor at 1e-30 turns degenerate minimal sets into finite garbage that the
@@ -303,8 +305,8 @@ def ransac_pnp(
     rank. quality = inlier count; success needs >= 6 inliers.
 
     Spans (utils/profiling): "dlt" (the samples, the minimal solves and
-    the finite fix) and "score" (`score_hypotheses`, the best hypothesis
-    and its inliers).
+    the finite fix), "score" (`score_hypotheses`, the best hypothesis and
+    its inliers) and, with LO or LM on, "lo_lm" (`refine_lo_lm`).
     """
     s_, n, _ = coord_2d.shape
     h = num_hypotheses
@@ -333,15 +335,12 @@ def ransac_pnp(
         inliers, _ = _inliers(r_best, t_best, pts2d, pts3d, valid, k_f, k_c, inlier_thresh)
         quality = hyp_counts[ar, best]
 
-    if lo_iters > 0:
-        r_best, t_best, inliers, quality = lo_refine(
-            r_best, t_best, pts2d, pts3d, valid, k_f, k_c,
-            inlier_thresh=inlier_thresh, iters=lo_iters, inliers=inliers, count=quality,
-        )
-    if refine_lm:
-        r_best, t_best = refine_pose_lm_guarded(
-            r_best, t_best, pts2d, pts3d, inliers, k_f, k_c, iters=lm_iters
-        )
+    if lo_iters > 0 or refine_lm:
+        with profiling.span("lo_lm"):
+            r_best, t_best, inliers, quality = refine_lo_lm(
+                r_best, t_best, pts2d, pts3d, valid, k_f, k_c, inliers, quality,
+                inlier_thresh, lo_iters, lm_iters if refine_lm else 0,
+            )
     return PnPResult(success=quality >= 6.0, R=r_best, t=t_best, inliers=inliers, quality=quality)
 
 
@@ -442,3 +441,77 @@ def refine_pose_lm_guarded(r, t, pts2d, pts3d, weight_mask, k_f, k_c, iters: int
         torch.where(ok[:, None, None], r_ref, r),
         torch.where(ok[:, None], t_ref, t),
     )
+
+
+# ---------------------------------------------------------------------------
+# LO and LM refinement kernel
+# ---------------------------------------------------------------------------
+
+
+def refine_lo_lm_plain(r, t, pts2d, pts3d, valid, k_f, k_c, inliers, count,
+                       inlier_thresh: float, lo_iters: int, lm_iters: int):
+    """`lo_refine` (when lo_iters > 0), then `refine_pose_lm_guarded` on
+    its inliers (when lm_iters > 0), in plain PyTorch."""
+    if lo_iters > 0:
+        r, t, inliers, count = lo_refine(
+            r, t, pts2d, pts3d, valid, k_f, k_c,
+            inlier_thresh=inlier_thresh, iters=lo_iters, inliers=inliers, count=count,
+        )
+    if lm_iters > 0:
+        r, t = refine_pose_lm_guarded(r, t, pts2d, pts3d, inliers, k_f, k_c, iters=lm_iters)
+    return r, t, inliers, count
+
+
+def refine_lo_lm(r, t, pts2d, pts3d, valid, k_f, k_c, inliers, count,
+                 inlier_thresh: float, lo_iters: int, lm_iters: int):
+    """LO refits, then LM kept where finite, on S correspondence sets:
+    `refine_lo_lm_plain` in one launch.
+
+    r [S, 3, 3], t [S, 3], pts2d [S, N, 2] pixels, pts3d [S, N, 3],
+    k_f / k_c [S, 2], count [S] (the inlier count of (r, t)) f32; valid and
+    inliers [S, N] bool -> (R, t, inliers, count) of the same shapes, the
+    inliers and count after LO. CPU tensors take the plain twin; CUDA
+    tensors one launch of csrc/refine.cu, which does the twin's arithmetic
+    with its sums in another order, or a ValueError for a wrong device,
+    dtype or shape.
+    """
+    if pts2d.device.type == "cpu":
+        return refine_lo_lm_plain(r, t, pts2d, pts3d, valid, k_f, k_c, inliers, count,
+                                  inlier_thresh, lo_iters, lm_iters)
+    if pts2d.dim() != 3 or pts2d.shape[-1] != 2:
+        raise ValueError("refine_lo_lm: pts2d must be [S, N, 2]")
+    s, n, _ = pts2d.shape
+    expected = {"r": (r, (s, 3, 3)), "t": (t, (s, 3)), "pts3d": (pts3d, (s, n, 3)),
+                "valid": (valid, (s, n)), "k_f": (k_f, (s, 2)), "k_c": (k_c, (s, 2)),
+                "inliers": (inliers, (s, n)), "count": (count, (s,))}
+    for name, (x, shape) in expected.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"refine_lo_lm: {name} is {tuple(x.shape)}, expected {shape}")
+    floats = (r, t, pts2d, pts3d, k_f, k_c, count)
+    if any(x.dtype != torch.float32 for x in floats) or any(
+            x.dtype != torch.bool for x in (valid, inliers)):
+        raise ValueError("refine_lo_lm: poses, points, cameras and counts must be float32, "
+                         "valid and inliers bool")
+    if s < 1 or n < 1 or lo_iters < 0 or lm_iters < 0:
+        raise ValueError("refine_lo_lm: needs S, N >= 1 and iteration counts >= 0")
+    r, t, pts2d, pts3d, valid, k_f, k_c, inliers, count = (
+        x.contiguous() for x in (r, t, pts2d, pts3d, valid, k_f, k_c, inliers, count))
+    dev = _kernels.require_cuda("refine_lo_lm", r, t, pts2d, pts3d, valid, k_f, k_c, inliers,
+                                count)
+    r_out = torch.empty(s, 3, 3, dtype=torch.float32, device=dev)
+    t_out = torch.empty(s, 3, dtype=torch.float32, device=dev)
+    inl_out = torch.empty(s, n, dtype=torch.bool, device=dev)
+    cnt_out = torch.empty(s, dtype=torch.float32, device=dev)
+    rc = _kernels.library().fp_refine_lo_lm(
+        pts2d.data_ptr(), pts3d.data_ptr(), valid.data_ptr(), k_f.data_ptr(), k_c.data_ptr(),
+        r.data_ptr(), t.data_ptr(), inliers.data_ptr(), count.data_ptr(),
+        float(inlier_thresh) ** 2, (2.0 * float(inlier_thresh)) ** 2, int(lo_iters),
+        int(lm_iters), r_out.data_ptr(), t_out.data_ptr(), inl_out.data_ptr(),
+        cnt_out.data_ptr(), s, n, _kernels.stream_ptr(dev),
+    )
+    _kernels.check(rc, "fp_refine_lo_lm")
+    refine_lo_lm.launches += 1
+    return r_out, t_out, inl_out, cnt_out
+
+
+refine_lo_lm.launches = 0

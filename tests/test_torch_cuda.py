@@ -301,6 +301,49 @@ def test_ransac_pnp_launches_the_scorer_once(dev):
     assert bool(res.success[1:].all()) and not bool(res.success[0])
 
 
+@pytest.mark.parametrize("lo_iters,lm_iters", [(2, 10), (0, 10), (2, 0)])
+@pytest.mark.parametrize("n", [37, 300, 1000])
+@pytest.mark.parametrize("s", [1, 16, 128])
+def test_refine_kernel_matches_twin(dev, s, n, lo_iters, lm_iters):
+    """refine_lo_lm's kernel against its twin on the card, one launch a
+    call. On data where no valid point lies within 0.1 px of the 10 or 20
+    px threshold at any pose the twin tests it at (tests/refine_data.py)
+    counts and inlier masks are equal in every set; R within 1e-4 and t
+    within 0.05 mm (1e-4 of the 450-650 mm depths) where the problem is
+    well posed: the sums run in another order and the 12x12 refits amplify
+    float32 rounding. The special sets (S >= 16): no valid point (its LO
+    refit solves zero sums and is accepted at count 0, so its pose is
+    rounding noise on both sides), four valid points, every point one 3D
+    point (degenerate: LO's refits collapse and are refused, so without LM
+    the input pose stays exactly; LM's steps there follow rounding), a NaN
+    in an invalid entry (every refit is not finite and no LM step is
+    accepted: the input pose stays exactly, on both sides), no base inlier
+    at the start but 90% of the points inside the widened threshold (the
+    first refit is accepted at a higher count), and a refit that loses
+    inliers (both refits refused: without LM the input pose stays)."""
+    from refine_data import refine_operands
+
+    ops = refine_operands(s, n, seed=s * 7 + n, device=dev)
+    iters = dict(inlier_thresh=10.0, lo_iters=lo_iters, lm_iters=lm_iters)
+    before = pnp.refine_lo_lm.launches
+    got = [x.cpu() for x in pnp.refine_lo_lm(**ops, **iters)]
+    assert pnp.refine_lo_lm.launches == before + 1
+    ref = [x.cpu() for x in pnp.refine_lo_lm_plain(**ops, **iters)]
+    assert torch.equal(got[3], ref[3]) and torch.equal(got[2], ref[2])
+    posed = slice(4, None) if s >= 4 else slice(None)
+    assert float((got[0][posed] - ref[0][posed]).abs().max()) < 1e-4
+    assert float((got[1][posed] - ref[1][posed]).abs().max()) < 0.05
+    if s >= 6:
+        r_in, t_in = ops["r"].cpu(), ops["t"].cpu()
+        kept = [2, 3, 5] if lm_iters == 0 else [3]
+        for out in (got, ref):
+            assert torch.equal(out[0][kept], r_in[kept]) and torch.equal(out[1][kept], t_in[kept])
+        assert float(got[3][0]) == 0.0 and not bool(got[2][0].any())
+        assert float(got[3][2]) == n and bool(torch.isfinite(got[0][1:]).all())
+        if lo_iters:
+            assert float(got[3][4]) > float(ops["count"][4])
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-3)])
 @pytest.mark.parametrize("tokens,seq_len", [(905, 905), (150, 141), (33, 33)])
 def test_attention_kernel_matches_twin(dev, dtype, tol, tokens, seq_len):
@@ -415,6 +458,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # a [D, 128] panel of w past shared memory
         micro_int8.mm_bf16(torch.zeros(128, 448, dtype=torch.bfloat16, device=dev),
                            torch.zeros(448, 128, dtype=torch.bfloat16, device=dev))
+    from refine_data import refine_operands
+
+    ops = refine_operands(2, 40, device=dev)
+    before = pnp.refine_lo_lm.launches
+    for bad in (dict(count=ops["count"][:1]), dict(valid=ops["valid"].float()),
+                dict(r=ops["r"].double()), dict(k_f=ops["k_f"].cpu())):
+        with pytest.raises(ValueError):
+            pnp.refine_lo_lm(**{**ops, **bad}, inlier_thresh=10.0, lo_iters=2, lm_iters=10)
+    assert pnp.refine_lo_lm.launches == before
 
 
 def _gloo_rank(rank, world, out_dir):

@@ -21,7 +21,7 @@ from foundpose_torch.utils import profiling
 STEP_PATHS = [
     "step", "step/vit", "step/retrieval", "step/match", "step/solve", "step/solve/ransac",
     "step/solve/ransac/dlt", "step/solve/ransac/score", "step/solve/refine",
-    "step/solve/refine/lo", "step/solve/refine/lm",
+    "step/solve/refine/lo_lm",
 ]
 CROP = 84
 TINY_VIT = dict(embed_dim=32, depth=2, num_heads=2, pos_grid=6)
@@ -177,6 +177,6 @@ def test_kernel_counters_are_the_main_path_wrappers():
     from foundpose_torch.benchmarks import bench
 
     main = profiling.kernel_counters()
-    assert list(main) == ["vit_block", "buddies", "ransac_score", "attention"]
+    assert list(main) == ["vit_block", "buddies", "ransac_score", "attention", "refine"]
     assert all(isinstance(fn.launches, int) for fn in main.values())
     assert list(bench.kernel_counters()) == list(main) + ["mm_bf16", "mm_int8"]
