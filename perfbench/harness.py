@@ -6,12 +6,15 @@ per-layer metric is found by name: `BENCHMARK.json` names the cell's
 configuration file and mix; the mix is `traffic/<mix>.json`, whose `kind`
 names a generator module `traffic/<kind>.py`; a per-layer metric's reader
 is `metrics/<metric>.py`; the cell's limits on the numbers that decide
-`correct` are `limits/<cell>.json`.
+`correct` are `limits/<cell>.json`; the backbone family, the first field of
+the configuration's extractor name, is `models/<family>.py` with its
+reference `reference/<family>.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib
 import importlib.util
@@ -19,12 +22,11 @@ import json
 import os
 import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from perfbench import judge, trace, weights as weights_mod, world as world_mod
-from perfbench.reference import vit as ref_vit
+from perfbench import judge, models, trace, world as world_mod
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -80,51 +82,19 @@ def forbidden_modules() -> list:
 
 @dataclasses.dataclass
 class Setup:
-    """What a run builds before its window."""
+    """What a run builds before its window. `ref_vit(images, prec)` is the
+    family's reference `feature_maps` on the run's weights and shape."""
 
-    shape: ref_vit.VitShape
+    family: str
+    shape: Any
+    ref_vit: Callable
     config: Any
-    weights: Dict[str, Any]
     world: Dict[str, Any]
     traffic: Any
     system: Any
     kind: Any
     cell_px: float
     split: Dict[str, float]
-
-
-def build_model(weights, vit_cfg, device):
-    """The program's DinoV2 holding the benchmark's weights."""
-    from foundpose_torch.models.dinov2 import DinoV2
-
-    with torch.device("meta"):
-        model = DinoV2(vit_cfg)
-    model = model.to_empty(device=device).eval()
-    model.load_state_dict(weights_mod.state_dict(weights))
-    return model
-
-
-def vit_switches(config: Dict[str, Any]):
-    """(program's DinoV2Config, extractor name, its overrides) of a
-    configuration file."""
-    from foundpose_torch.models import dinov2
-    from foundpose_torch.pipeline import inference
-
-    opts = config["infer_opts"]
-    vit_cfg = inference.vit_config_from_opts(opts)
-    named = dinov2.parse_model_name(opts["extractor_name"])
-    overrides = {f.name: getattr(vit_cfg, f.name) for f in dataclasses.fields(vit_cfg)
-                 if getattr(vit_cfg, f.name) != getattr(named, f.name)}
-    return vit_cfg, opts["extractor_name"], overrides
-
-
-def ref_shape(opts: Dict[str, Any]) -> ref_vit.VitShape:
-    """The reference's own reading of a configuration's ViT: the extractor
-    string, the GELU form and the overrides of its widths."""
-    fields = {f.name for f in dataclasses.fields(ref_vit.VitShape)}
-    sizes = {k: v for k, v in (opts.get("vit_overrides") or {}).items() if k in fields}
-    return ref_vit.parse_extractor(opts["extractor_name"],
-                                   approx_gelu=bool(opts.get("approx_gelu", False)), **sizes)
 
 
 def setup(config, mix, seed: int, device, t0: float) -> Setup:
@@ -142,8 +112,6 @@ def setup(config, mix, seed: int, device, t0: float) -> Setup:
         split[name] = now - mark[0]
         mark[0] = now
 
-    from foundpose_torch.models import dinov2  # noqa: F401  (the program's imports)
-
     # From process start: the interpreter, torch's import, the CUDA driver's
     # start (run.py's check for a card) and the program's imports.
     lap("start_s")
@@ -152,30 +120,32 @@ def setup(config, mix, seed: int, device, t0: float) -> Setup:
     lap("cuda_s")
     _kernels.library()
     lap("library_s")
-    vit_cfg, extractor, overrides = vit_switches(config)
     opts = config["infer_opts"]
+    family = models.name(opts)
+    fam = models.family(family)
     inf_cfg = inference.inference_config_from_opts(opts)
-    shape = ref_shape(opts)
-    w = weights_mod.make(shape, seed, device)
-    model = build_model(w, vit_cfg, device)
+    shape = fam.shape(opts)
+    w = fam.make_weights(shape, seed, device)
+    model, extractor, overrides = fam.program(w, opts, device)
+    ref_vit = functools.partial(models.reference(family).feature_maps, w, shape)
     lap("weights_s")
     kind = kind_module(mix)
     crop_px = int(opts["crop_size"][0])
     traffic = kind.Traffic(mix["params"], seed + 1, crop_px, device)
     r = config["repre"]
     wld = world_mod.base(seed + 2, device, r["num_templates"], r["fmax"], r["pca_components"],
-                         r["cluster_num"], shape.embed_dim)
+                         r["cluster_num"], fam.feat_dim(shape))
     lap("world_s")
     # The reference's own work (its warp and its float32 ViT over the
     # solvable crops): timed apart and left out of `setup_s`.
     cell_px = float(opts["grid_cell_size"])
-    world_mod.put_crops(wld, w, shape, *traffic.templates(), cell_px, seed + 3)
+    world_mod.put_crops(wld, ref_vit, *traffic.templates(), cell_px, seed + 3)
     lap("reference_s")
     repre = world_mod.program_repre(wld, extractor)
     torch.cuda.reset_peak_memory_stats(device)
     system = kind.System(model, repre, inf_cfg, traffic, extractor, overrides)
     lap("program_s")
-    return Setup(shape, inf_cfg, w, wld, traffic, system, kind, cell_px, split)
+    return Setup(family, shape, ref_vit, inf_cfg, wld, traffic, system, kind, cell_px, split)
 
 
 def device_info(device, count: int) -> Dict[str, Any]:

@@ -142,7 +142,7 @@ def control_answers(s, crops, masks, f, c, prec: Precision):
     """The reference in the program's place at `prec` (the control), on the
     crops of a harness.Setup `s`: answers named as the judge reads the
     program's."""
-    ana = pipeline.analyse(s.weights, s.shape, s.world, crops, masks, s.cell_px, prec)
+    ana = pipeline.analyse(s.ref_vit, s.world, crops, masks, s.cell_px, prec)
     out = pipeline.outputs(ana, s.world, f, c, s.config.top_n_templates,
                            s.config.top_k_buddies, prec)
     n = len(crops)

@@ -2,12 +2,12 @@
 
 The work is fixed by the configuration, whatever kernels run it: the
 facet forward's analytic operations for the batch and the bytes it must
-move at least (perfbench.flops). The least time is the larger of
-operations over the card's bf16 peak and bytes over its bandwidth; the
-share is that over the summed device time of every kernel and copy in a
-whole profiled call of the ViT stage."""
+move at least (its backbone family's counts). The least time is the
+larger of operations over the card's bf16 peak and bytes over its
+bandwidth; the share is that over the summed device time of every kernel
+and copy in a whole profiled call of the ViT stage."""
 
-from perfbench import flops, stats
+from perfbench import flops, models, stats
 
 
 def read(rec):
@@ -18,6 +18,6 @@ def read(rec):
     if device_s <= 0:
         return None
     peak = flops.peaks(rec["device_name"])
-    s, px, b = rec["shape"], rec["crop_px"], rec["batch"]
-    return stats.roofline_pct(flops.vit_flops_per_crop(s, px) * b, flops.vit_bytes(s, px, b),
+    fam, s, px, b = models.family(rec["family"]), rec["shape"], rec["crop_px"], rec["batch"]
+    return stats.roofline_pct(fam.vit_flops_per_crop(s, px) * b, fam.vit_bytes(s, px, b),
                               device_s, peak["bf16_flops"], peak["bytes_s"])

@@ -1,10 +1,12 @@
-"""Plain DINOv2 (Oquab et al. 2023, facebookresearch/dinov2) up to a facet.
+"""Plain DINOv2 (Oquab et al. 2023, facebookresearch/dinov2) up to a facet:
+the reference of the `dinov2` backbone family (`perfbench/models/dinov2.py`).
 
 Weights come as a dict under the official state-dict names, with every
 block's tensors stacked on a leading axis (`blocks` below): the layout in
 which the benchmark makes them. Pre-norm blocks, layer scale, tanh or erf
 GELU (or SwiGLU), position embeddings resized bicubically with DINOv2's
-+0.1 in the scale factor, register tokens after the class token.
++0.1 in the scale factor, register tokens after the class token. The
+harness calls `feature_maps`.
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@
 validity and every template's tf-idf similarity. `outputs` puts the
 reference in the program's place: the top templates, the first one's
 cyclic buddies and a DLT pose, fields named as the judge reads the
-program's. Run with `Precision(lowp=True)` that is the control (with a
-subset of its stages, the control of those stages alone).
+program's. The backbone comes as `vit(images, prec)`: a family's reference
+`feature_maps` bound to its weights and shape, taking images [B, H, W, 3]
+in [0, 1] to patch features [B, gh, gw, D]. Run with
+`Precision(lowp=True)` that is the control (with a subset of its stages,
+the control of those stages alone).
 """
 
 from __future__ import annotations
@@ -14,18 +17,17 @@ from typing import Dict
 
 import torch
 
-from perfbench.reference import pose, retrieval, vit
+from perfbench.reference import pose, retrieval
 from perfbench.reference.precision import Precision, exact_f32
 
 
 @torch.no_grad()
-def features(weights, shape: vit.VitShape, pca, crops, masks, cell: float,
-             prec: Precision) -> Dict[str, torch.Tensor]:
+def features(vit, pca, crops, masks, cell: float, prec: Precision) -> Dict[str, torch.Tensor]:
     """Query points [Q, 2], PCA features [B, Q, D] and validity [B, Q] of
     crops [B, H, W, 3] (uint8, or float in [0, 1]) with masks [B, H, W]."""
     with exact_f32():
         images = crops.float() / 255.0 if crops.dtype == torch.uint8 else crops.float()
-        fmap = vit.feature_maps(weights, shape, images, prec)
+        fmap = vit(images, prec)
         h, w = crops.shape[1:3]
         points = retrieval.grid_points((w, h), cell, crops.device)
         if fmap.shape[1] * fmap.shape[2] != points.shape[0]:
@@ -35,10 +37,9 @@ def features(weights, shape: vit.VitShape, pca, crops, masks, cell: float,
 
 
 @torch.no_grad()
-def analyse(weights, shape: vit.VitShape, world, crops, masks, cell: float,
-            prec: Precision) -> Dict[str, torch.Tensor]:
+def analyse(vit, world, crops, masks, cell: float, prec: Precision) -> Dict[str, torch.Tensor]:
     """`features` and the similarities [B, T] to every template."""
-    ana = features(weights, shape, world["pca"], crops, masks, cell, prec)
+    ana = features(vit, world["pca"], crops, masks, cell, prec)
     with exact_f32():
         ana["sims"] = retrieval.template_similarity(ana["q"], ana["valid"], world, prec)
     return ana

@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from perfbench import harness
+from perfbench import harness, models
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -67,6 +67,8 @@ def test_cell_parts_found_by_name(cell):
     assert w["chips"] == 1
     assert os.path.exists(os.path.join(harness.HERE, "traffic", f"{mix['kind']}.py"))
     assert {"infer_opts", "repre", "reduced", "assumed", "deployment"} <= set(config)
+    family = models.name(config["infer_opts"])
+    assert models.family(family) and models.reference(family)
     assert limits and all("limit" in v for k, v in limits.items() if not k.startswith("_"))
     assert reported(E2E["setup_s"], w["name"])
     assert sum(reported(x, w["name"]) for x in M["end_to_end"]) >= 2

@@ -3,18 +3,18 @@ stage fed the same inputs: the ViT (the program's unfused f32 path, the
 same weights), retrieval, exact cyclic buddies, the crop cameras and the
 warp."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
 
-from perfbench import harness, judge, weights, world
-from perfbench.reference import camera, pipeline, pose, retrieval, vit
+from perfbench import judge, world
+from perfbench.models import dinov2 as fam
+from perfbench.reference import camera, dinov2 as vit, pipeline, pose, retrieval
 from perfbench.reference.precision import Precision, fp8
 from perfbench.tests import tiny
 
 P = Precision()
+TINY = dict(embed_dim=128, num_heads=2, depth=3, pos_grid=6)
 
 
 @pytest.fixture(scope="module")
@@ -26,26 +26,26 @@ def tiny_setup():
 def test_vit_matches_the_program(facet):
     from foundpose_torch.models import dinov2
 
-    name = f"dinov2_version=vits14-reg_stride=14_facet={facet}_layer=1_norm=1"
-    cfg = dataclasses.replace(dinov2.parse_model_name(name), embed_dim=128, num_heads=2, depth=3,
-                              pos_grid=6, approx_gelu=True)
-    s = harness.ref_shape({"extractor_name": name, "approx_gelu": True, "vit_overrides": dict(
-        embed_dim=128, num_heads=2, depth=3, pos_grid=6)})
-    w = weights.make(s, 5, "cpu")
-    model = harness.build_model(w, cfg, torch.device("cpu"))
+    opts = {"extractor_name": f"dinov2_version=vits14-reg_stride=14_facet={facet}_layer=1_norm=1",
+            "approx_gelu": True, "vit_overrides": TINY}
+    s = fam.shape(opts)
+    w = fam.make_weights(s, 5, "cpu")
+    model, extractor, overrides = fam.program(w, opts, torch.device("cpu"))
+    assert extractor == opts["extractor_name"]
+    assert overrides == dict(TINY, approx_gelu=True)
     images = torch.rand(3, 84, 84, 3, generator=torch.Generator().manual_seed(1))
     ours = vit.feature_maps(w, s, images, P)
-    theirs = dinov2.extract_facet(model, dinov2.normalize_images(images))["feature_maps"]
+    theirs = fam.extract(model, dinov2.normalize_images(images))
     assert ours.shape == theirs.shape
     assert (ours - theirs).abs().max() < 1e-4 * theirs.abs().max()
 
 
 def test_calibrated_logits():
     s = vit.parse_extractor("dinov2_version=vits14-reg_stride=14_facet=token_layer=1_norm=1",
-                            embed_dim=128, num_heads=2, depth=3, pos_grid=6)
-    maxima = weights.calibrate(weights.init(s, torch.Generator().manual_seed(0), "cpu"), s,
-                               torch.Generator().manual_seed(1))
-    np.testing.assert_allclose(maxima, weights.TARGET_LOGIT, rtol=1e-4)
+                            **TINY)
+    maxima = fam.calibrate(fam.init(s, torch.Generator().manual_seed(0), "cpu"), s,
+                           torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(maxima, fam.TARGET_LOGIT, rtol=1e-4)
 
 
 def test_retrieval_matches_the_program(tiny_setup):
@@ -53,7 +53,7 @@ def test_retrieval_matches_the_program(tiny_setup):
 
     s = tiny_setup
     t = s.traffic
-    ana = pipeline.analyse(s.weights, s.shape, s.world, t.crops[:8], t.masks[:8], s.cell_px, P)
+    ana = pipeline.analyse(s.ref_vit, s.world, t.crops[:8], t.masks[:8], s.cell_px, P)
     repre = world.program_repre(s.world, "x")
     ids, scores = tfidf_retrieve(ana["q"], repre.word_centroids, repre.word_idfs,
                                  repre.template_descs, 5, repre.tfidf_config,
@@ -68,7 +68,7 @@ def test_buddies_match_the_program_exact_path(tiny_setup):
 
     s = tiny_setup
     t = s.traffic
-    ana = pipeline.analyse(s.weights, s.shape, s.world, t.crops[:8], t.masks[:8], s.cell_px, P)
+    ana = pipeline.analyse(s.ref_vit, s.world, t.crops[:8], t.masks[:8], s.cell_px, P)
     best = torch.argmax(ana["sims"], 1)
     q_ids, o_ids, ok = retrieval.cyclic_buddies(
         ana["points"], ana["q"], ana["valid"], s.world["bank_feats"][best],
@@ -85,7 +85,7 @@ def test_solvable_crops_give_their_own_pose(tiny_setup):
     s = tiny_setup
     t = s.traffic
     sol = t.solvable[:4]
-    ana = pipeline.analyse(s.weights, s.shape, s.world, t.crops[sol], t.masks[sol], s.cell_px, P)
+    ana = pipeline.analyse(s.ref_vit, s.world, t.crops[sol], t.masks[sol], s.cell_px, P)
     out = pipeline.outputs(ana, s.world, t.f[sol], t.c[sol], 5, 20, P)
     assert torch.equal(out["best_template"], t.own[sol])
     r_true, t_true = judge.true_poses(s.world, t.own[sol].numpy())

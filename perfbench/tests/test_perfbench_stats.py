@@ -3,8 +3,9 @@
 import numpy as np
 import pytest
 
-from perfbench import flops, stats, trace
-from perfbench.reference.vit import parse_extractor
+from perfbench import stats, trace
+from perfbench.models import dinov2
+from perfbench.reference.dinov2 import parse_extractor
 
 
 def test_rate_is_all_work_over_all_time():
@@ -46,7 +47,7 @@ def test_vit_flops_match_the_published_shapes():
     s = parse_extractor("dinov2_version=vits14-reg_stride=14_facet=token_layer=9_norm=1")
     n_tok = 30 * 30 + 1 + 4
     layer = 2 * (n_tok * (4 * 384 * 384 + 2 * 384 * 1536) + 2 * n_tok * n_tok * 384)
-    assert flops.vit_flops_per_crop(s, 420) == 2 * 900 * 588 * 384 + 10 * layer
+    assert dinov2.vit_flops_per_crop(s, 420) == 2 * 900 * 588 * 384 + 10 * layer
     k = parse_extractor("dinov2_version=vitl14_stride=14_facet=key_layer=18_norm=1")
     assert k.blocks_run == 18 and k.registers == 0 and k.mlp_hidden == 4096
 

@@ -1,8 +1,9 @@
-"""A cell of the benchmark shrunk to run on the CPU in seconds: a 3-block
-ViT of 128 wide with 64-wide heads on 84 px crops, 40 templates, 16 crops
-or 4 frames. The configuration, mix and limits files stay the cell's own
-otherwise; the program runs its kernels' plain twins. The harness has the
-card's path only: `on_the_cpu` stands in for what only a card has."""
+"""A cell of the benchmark shrunk to run on the CPU in seconds: 84 px
+crops, 40 templates, 16 crops or 4 frames, and the ViT cut by its backbone
+family's `tiny`. The configuration, mix and limits files stay the cell's
+own otherwise, or a test gives a configuration in the cell's place; the
+program runs its kernels' plain twins. The harness has the card's path only: `on_the_cpu`
+stands in for what only a card has."""
 
 from __future__ import annotations
 
@@ -12,22 +13,20 @@ from unittest import mock
 
 import torch
 
-from perfbench import harness
+from perfbench import harness, models
 
 SEED = 2147483659  # over 31 bits: seeds may be
 CELL_PARTS = harness.cell_parts  # the cell's own files, before `on_the_cpu` shrinks them
 
 
-def parts(cell: str):
-    """(config, mix) of `cell`, shrunk."""
-    _, config, mix, _ = CELL_PARTS(harness.manifest(), cell)
-    config, mix = copy.deepcopy(config), copy.deepcopy(mix)
-    o = config["infer_opts"]
+def parts(cell: str, config=None):
+    """(config, mix) of `cell`, shrunk; with `config` in place of the
+    cell's own configuration."""
+    _, own, mix, _ = CELL_PARTS(harness.manifest(), cell)
+    config, mix = copy.deepcopy(own if config is None else config), copy.deepcopy(mix)
+    o = models.family(models.name(config["infer_opts"])).tiny(config["infer_opts"])
+    config["infer_opts"] = o
     o["crop_size"] = [84, 84]
-    name = o["extractor_name"]
-    o["extractor_name"] = name.replace("layer=9", "layer=1").replace("layer=18", "layer=1")
-    o["vit_overrides"] = dict(o.get("vit_overrides") or {}, embed_dim=128, num_heads=2, depth=3,
-                              pos_grid=6)
     o["match_top_k_buddies"] = 20
     config["repre"] = {"num_templates": 40, "fmax": 48, "pca_components": 16, "cluster_num": 32}
     p = mix["params"]
@@ -49,15 +48,15 @@ class _Done:
 
 
 @contextlib.contextmanager
-def on_the_cpu():
-    """The harness on the CPU with every cell shrunk by `parts`: CUDA's
-    clock, memory readings and events, pinned host memory and the port's
-    kernel library get stand-ins."""
+def on_the_cpu(config=None):
+    """The harness on the CPU with every cell shrunk by `parts` (with
+    `config` in its own's place): CUDA's clock, memory readings and events,
+    pinned host memory and the port's kernel library get stand-ins."""
     empty = torch.empty
 
     def shrunk(m, cell):
         w, _, _, limits = CELL_PARTS(m, cell)
-        return (w, *parts(cell), limits)
+        return (w, *parts(cell, config), limits)
 
     def unpinned(*args, pin_memory=False, **kwargs):
         return empty(*args, **kwargs)
@@ -78,13 +77,13 @@ def on_the_cpu():
         yield
 
 
-def run(cell: str, seconds: float = 0.5, seed: int = SEED):
-    with on_the_cpu():
+def run(cell: str, seconds: float = 0.5, seed: int = SEED, config=None):
+    with on_the_cpu(config):
         return harness.run(cell, seed, seconds, False)
 
 
-def setup(cell: str, seed: int = SEED):
-    config, mix = parts(cell)
+def setup(cell: str, seed: int = SEED, config=None):
+    config, mix = parts(cell, config)
     torch.set_grad_enabled(False)
     with on_the_cpu():
         return harness.setup(config, mix, seed, torch.device("cpu"), 0.0)

@@ -190,7 +190,7 @@ def check(s, answers, seed: int, control=False, sample: int = 2) -> dict:
                 s, crops, masks, t.f[idx], t.c[idx], Precision(lowp=control)).items()}
         else:
             out = unpack(answers[int(step)], s.system.spec)
-        ana = pipeline.analyse(s.weights, s.shape, s.world, crops, masks, s.cell_px, Precision())
+        ana = pipeline.analyse(s.ref_vit, s.world, crops, masks, s.cell_px, Precision())
         parts.append(judge.offline_numbers(out, ana, s.world, t.own[idx].cpu().numpy()))
     numbers = judge.merge(parts)
     numbers["nonfinite"] = sum(judge.nonfinite([answers[k]]) for k in steps)
@@ -212,20 +212,20 @@ def traced(s, e2e, errors) -> dict:
     around each stage of the step, called one after another on inputs made
     once), a profiled ViT stage, a profiled step with the port's launch
     counters beside it, and a profiled window of 2 steps."""
-    from perfbench import trace
+    from perfbench import models, trace
 
     system, t, cfg = s.system, s.traffic, s.config
     inf, model, repre, gen = system.inference, system.model, system.repre, system.gen
     idx = t.indices(0)
     crops, masks, cams = t.crops[idx], t.masks[idx], t.cameras(idx)
+    extract = models.family(s.family).extract
 
     def vit():
-        from foundpose_torch.models import dinov2
-
-        return dinov2.extract_facet(model, inf.preprocess_crops(crops, cfg))["feature_maps"].float()
+        return extract(model, inf.preprocess_crops(crops, cfg)).float()
 
     rec = {"kind": "offline", "crops_per_s": e2e["crops_per_s"], "batch": t.batch,
-           "shape": s.shape, "config": cfg, "crop_px": int(t.crops.shape[1]),
+           "family": s.family, "shape": s.shape, "config": cfg, "cell_px": s.cell_px,
+           "crop_px": int(t.crops.shape[1]),
            "repre": {"feat_dim": s.world["bank_feats"].shape[2],
                      "num_words": s.world["words"].shape[0],
                      "fmax": s.world["bank_feats"].shape[1]},

@@ -223,8 +223,7 @@ def check(s, answers, seed: int, control=False) -> dict:
         k, res = answers[i]
         nb = len(res)
         ref_crops, ref_masks, _, _, rot = t.warp(k)
-        ana = pipeline.analyse(s.weights, s.shape, s.world, ref_crops, ref_masks, s.cell_px,
-                               Precision())
+        ana = pipeline.analyse(s.ref_vit, s.world, ref_crops, ref_masks, s.cell_px, Precision())
         r_true, t_true = judge.true_poses(s.world, t.own[k])
         r_true, t_true = rot.numpy() @ r_true, (rot.numpy() @ t_true[..., None])[..., 0]
         if control:

@@ -49,11 +49,11 @@ def base(seed: int, device, num_templates: int, fmax: int, feat_dim: int, num_wo
 
 
 @torch.no_grad()
-def put_crops(world, weights, shape, crops, masks, f, c, cell: float, seed: int,
-              rows: int = 16):
+def put_crops(world, vit, crops, masks, f, c, cell: float, seed: int, rows: int = 16):
     """Makes templates 0..n-1 of `world` out of the n crops ([n, H, W, 3],
-    uint8 or float in [0, 1]; masks [n, H, W], crop intrinsics f, c [n, 2]),
-    redraws the words and computes the tf-idf tables. Modifies and returns
+    uint8 or float in [0, 1]; masks [n, H, W], crop intrinsics f, c [n, 2])
+    with the reference backbone `vit` (see `pipeline.features`), redraws
+    the words and computes the tf-idf tables. Modifies and returns
     `world`."""
     device = crops.device
     g = torch.Generator(device=device).manual_seed(seed)
@@ -61,8 +61,8 @@ def put_crops(world, weights, shape, crops, masks, f, c, cell: float, seed: int,
     fmax = world["bank_feats"].shape[1]
     picked, poses_r, poses_t = [], [], []
     for r in range(0, crops.shape[0], rows):
-        ana = pipeline.features(weights, shape, world["pca"], crops[r : r + rows],
-                                masks[r : r + rows], cell, prec)
+        ana = pipeline.features(vit, world["pca"], crops[r : r + rows], masks[r : r + rows],
+                                cell, prec)
         pts = ana["points"]
         rays = torch.cat([(pts[None] - c[r : r + rows, None]) / f[r : r + rows, None],
                           torch.ones(len(ana["q"]), pts.shape[0], 1, device=device)], dim=-1)
