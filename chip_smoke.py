@@ -258,6 +258,26 @@ Phases (each prints one line and raises on failure):
      and adjusted, each over phase 10's build of one object. Every figure
      finite and positive; the ratios are findings.
 
+  19 (after phase 13, before phase 12) kernel 1 at DINOv3 ViT-7B/16 on
+     what pose_from_crops gives it in the benchmark's cell
+     dinov3vit7b16_offline_b32 (perfbench/configs/lmo_dinov3vit7b16.json:
+     32 crops of 480 px, 905 tokens, width 4,096, 32 heads of 128, SwiGLU
+     8,192, axial RoPE on the 900 patch tokens; the cell's calibrated
+     weights from perfbench/models/dinov3 on the card). (a) the block with
+     RoPE against its twin through the 31 layers, as phase 2 (per-layer
+     output and branch rel. L2, the token facet's feature-map cosine, the
+     column stabilizer once, times of kernel, twin and the PyTorch calls
+     of one layer's shapes with the rotation, the bound, the seven
+     launches). (b) layer 0 without RoPE (EPI_QKV at heads of 128): branch
+     rel. L2 and time. (c) the kernel with RoPE against the twin with no
+     rotation, the opposite angle and the grid's axes swapped: each must
+     fail the branch gate. (d) LayerNorm at 4,096, the qkv GEMM with RoPE
+     and attention at heads of 128: device ms of each launch, CUDA-event
+     ms of the twin's code for it and of F.layer_norm, F.linear with the
+     rotation, and scaled_dot_product_attention, each one's bound. (e)
+     launches from zero over one batch of 32 (block 31, of them 31 with
+     RoPE, buddies 1, scorer 1, refinement 1; the RoPE tables cached).
+
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
 prints no result. Details go to chiprun_out/chip_smoke.json.
@@ -304,6 +324,12 @@ BLOCK_REL_L2 = 1e-2  # per layer, relative L2 of the block output
 # a wrong attention or MLP branch.
 BRANCH_REL_L2 = 1e-2
 FMAP_COS_MEDIAN, FMAP_COS_MIN = 0.999, 0.99  # per-token cosine after all layers
+# Phase 19 (31 layers of width 4,096): the kernel chain's and the bf16
+# twin chain's feature maps are each compared with the f32 chain's; the
+# kernel's 1 - cosine (median, and at the worst token) may be at most this
+# multiple of the twin's, so the kernel rounds no worse than bf16 at the
+# twin's rounding points.
+FMAP_F32_RATIO = 2.0
 BUDDIES_Q2O_AGREE = 0.99  # share of valid queries with equal q2o
 BUDDIES_CD_ATOL = 1e-4
 # Attention kernel vs twin, relative L2: f32 differs in summation order
@@ -526,23 +552,27 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     return result
 
 
-def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True):
+def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True, rope=None, f32_chain=False):
     """The block kernel against its twin on activations x0 [B, T, D] (bf16)
     carried through the blocks extract_facet runs whole: relative L2 of
     each layer's output and of its residual branches (out - x), the facet's
     feature maps' cosine after all layers, the "column" stabilizer on layer 0; CUDA-event times of
     one capped layer (kernel, twin, and the PyTorch calls of its shapes
     together), its bound from utils/flops, and with `split` its seven
-    launches one by one (benchmarks/block_split)."""
+    launches one by one (benchmarks/block_split). `rope` (DINOv3): the
+    rotary tables and prefix every layer takes, and the library's calls
+    then rotate q and k too (`library_rotation`). With `f32_chain` the
+    feature maps of both chains are held to those of the twin's chain in
+    f32 instead of to each other (FMAP_F32_RATIO)."""
     from foundpose_torch.benchmarks import block_split
-    from foundpose_torch.models import dinov2
+    from foundpose_torch.models import dinov2, dinov3
     from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain
     from foundpose_torch.utils import flops
 
     bf16 = torch.bfloat16
     b, t, d = x0.shape
     kw = dict(seq_len=t, num_heads=vit_cfg.num_heads, head_dim=vit_cfg.head_dim,
-              eps=vit_cfg.layer_norm_eps, approx_gelu=vit_cfg.approx_gelu)
+              eps=vit_cfg.layer_norm_eps, approx_gelu=vit_cfg.approx_gelu, rope=rope)
 
     def rel_l2(got, ref):
         return float(torch.linalg.vector_norm((got - ref).float())
@@ -563,11 +593,24 @@ def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True):
     side = int(round((t - 1 - vit_cfg.num_register_tokens) ** 0.5))
 
     def fmap(x):  # the facet's feature map (a q/k/v facet adds its layer's plain qkv)
-        return dinov2.facet_outputs(model, dinov2.facet_tokens(model, x),
-                                    (side, side))["feature_maps"].flatten(1, 2).float()
+        tokens = (dinov2.facet_tokens(model, x) if rope is None
+                  else dinov3.facet_tokens(model, x, rope))
+        return dinov2.facet_outputs(model, tokens, (side, side))["feature_maps"].flatten(
+            1, 2).float()
 
-    cos = torch.nn.functional.cosine_similarity(fmap(xk), fmap(xp), dim=-1).flatten()
-    cos_med, cos_min = float(cos.median()), float(cos.min())
+    def cosines(a, b):
+        c = torch.nn.functional.cosine_similarity(fmap(a), fmap(b), dim=-1).flatten()
+        return float(c.median()), float(c.min())
+
+    cos_med, cos_min = cosines(xk, xp)
+    to_f32 = None
+    if f32_chain:
+        xf = x0.float()
+        for blk in list(model.blocks)[: dinov2.facet_depth(vit_cfg)]:
+            xf = fused_vit_block_plain(xf, blk.kernel_params(torch.float32),
+                                       softmax_stabilizer=vit_cfg.softmax_stabilizer, **kw)
+        to_f32 = dict(kernel=cosines(xk, xf), twin=cosines(xp, xf))
+        del xf
     p0 = model.blocks[0].kernel_params(bf16)
     col_k = fused_vit_block(x0, p0, softmax_stabilizer="column", **kw)
     col_p = fused_vit_block_plain(x0, p0, softmax_stabilizer="column", **kw)
@@ -575,30 +618,46 @@ def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True):
     col_branch = rel_l2(col_k.float() - x0.float(), col_p.float() - x0.float())
     ms_k = cuda_ms(torch, lambda: fused_vit_block(x0, p0, softmax_stabilizer="capped", **kw))
     ms_p = cuda_ms(torch, lambda: fused_vit_block_plain(x0, p0, softmax_stabilizer="capped", **kw))
-    ms_lib = cuda_ms(torch, block_split.library_composite(x0, p0, vit_cfg.num_heads,
-                                                          vit_cfg.head_dim))
+    calls = [block_split.library_composite(x0, p0, vit_cfg.num_heads, vit_cfg.head_dim)]
+    if rope is not None:
+        calls.append(library_rotation(torch, x0, rope, vit_cfg.num_heads, vit_cfg.head_dim))
+    ms_lib = cuda_ms(torch, lambda: [call() for call in calls])
     block_flops = b * flops.vit_layer_flops(vit_cfg, t)
     bms, by = bound(block_flops, 2 * nbytes(x0) + nbytes(*p0.values()), "bf16")
     res = dict(
         shape=list(x0.shape), mlp="swiglu" if vit_cfg.swiglu else "gelu",
         rel_l2_per_layer=rel, branch_rel_l2_per_layer=branch,
         column_rel_l2=col_rel, column_branch_rel_l2=col_branch,
-        fmap_cos_median=cos_med, fmap_cos_min=cos_min, max_abs_err=block_err,
+        fmap_cos_median=cos_med, fmap_cos_min=cos_min, fmap_cos_to_f32=to_f32,
+        max_abs_err=block_err,
         ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by, library_ms=None,
         library_composite_ms=ms_lib, gflop=block_flops / 1e9,
     )
     log(phase, f"vit_block x{list(x0.shape)} bf16 ({res['mlp']} MLP, {len(rel)} layers): rel L2/"
                f"layer max {max(rel):.2e} (tol {BLOCK_REL_L2}), branches (out - x) max "
                f"{max(branch):.2e} (tol {BRANCH_REL_L2}), column {col_rel:.2e} / branches "
-               f"{col_branch:.2e}, fmap cos median {cos_med:.6f} min {cos_min:.6f} (tol "
-               f"{FMAP_COS_MEDIAN}/{FMAP_COS_MIN}); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms "
+               f"{col_branch:.2e}, fmap cos median {cos_med:.6f} min {cos_min:.6f} ("
+               + ("gated against the f32 chain" if f32_chain
+                  else f"tol {FMAP_COS_MEDIAN}/{FMAP_COS_MIN}")
+               + f"); kernel {ms_k:.3f} ms vs twin {ms_p:.3f} ms "
                f"vs the PyTorch calls of its shapes together (F.linear x4, SDPA"
-               f"{', F.silu(a) * b' if vit_cfg.swiglu else ''}) {ms_lib:.3f} ms per layer; bound "
+               f"{', F.silu(a) * b' if vit_cfg.swiglu else ''}"
+               f"{', the rotation of q and k' if rope is not None else ''}) {ms_lib:.3f} ms per "
+               f"layer; bound "
                f"{bms:.4f} ms ({by}, {block_flops / 1e9:.1f} GFLOP), {100 * bms / ms_k:.1f}%")
     check(max(rel) <= BLOCK_REL_L2 and col_rel <= BLOCK_REL_L2, f"block rel L2 {rel} {col_rel}")
     check(max(branch) <= BRANCH_REL_L2 and col_branch <= BRANCH_REL_L2,
           f"block branch rel L2 {branch} {col_branch}")
-    check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN, f"fmap cosine {cos_med} {cos_min}")
+    if to_f32 is None:
+        check(cos_med >= FMAP_COS_MEDIAN and cos_min >= FMAP_COS_MIN,
+              f"fmap cosine {cos_med} {cos_min}")
+    else:
+        (k_med, k_min), (t_med, t_min) = to_f32["kernel"], to_f32["twin"]
+        log(phase, f"fmap cosine to the f32 chain: kernel median {k_med:.6f} min {k_min:.6f}, "
+                   f"twin median {t_med:.6f} min {t_min:.6f} (the kernel's 1 - cosine at most "
+                   f"{FMAP_F32_RATIO}x the twin's)")
+        check(1 - k_med <= FMAP_F32_RATIO * (1 - t_med)
+              and 1 - k_min <= FMAP_F32_RATIO * (1 - t_min), f"fmap cosine to f32 {to_f32}")
     if not split:
         return res
     # The seven launches of one capped layer, and the PyTorch calls of the
@@ -606,7 +665,8 @@ def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True):
     # A split torch.profiler could not see whole is not measured; the
     # kernel's checks above and the launch counts do not depend on it.
     try:
-        split = block_split.launch_split(fused_vit_block, x0, p0, softmax_stabilizer="capped", **kw)
+        split = block_split.launch_split(fused_vit_block, x0, p0, softmax_stabilizer="capped",
+                                         **kw)
         shown = ", ".join(f"{r['launch']} {r['ms']:.4f}" for r in split)
     except block_split.ProfilerLostKernels as e:
         split = dict(not_measured="torch.profiler lost device kernels on every try",
@@ -3014,6 +3074,193 @@ def phase_vitl(torch, device):
     return res
 
 
+# Phase 19: kernel 1 at DINOv3 ViT-7B/16, on the operands pose_from_crops
+# gives it in the benchmark's cell dinov3vit7b16_offline_b32 (that cell's
+# configuration, weights from the cell's own recipe, a batch of 32).
+DINOV3_CONFIG = os.path.join(ROOT, "perfbench", "configs", "lmo_dinov3vit7b16.json")
+DINOV3_BATCH = 32
+DINOV3_WEIGHTS_SEED = 2147500019
+
+
+def library_rotation(torch, x, rope, num_heads, head_dim):
+    """A callable: the rotation of q and k as PyTorch calls in x's dtype
+    (x cos + rotate_half(x) sin on the tables tiled to the head) over
+    seeded q and k of x's [B, T] and `rope`'s tokens, the library's
+    counterpart of the rotation kernel 1's qkv GEMM folds in."""
+    cos, sin, prefix = rope
+    b, t, _ = x.shape
+    half = head_dim // 2
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    qk = torch.randn(b, t - prefix, 2, num_heads, head_dim, generator=gen,
+                     device=x.device).to(x.dtype)
+    c, s_ = (torch.cat([a, a], dim=-1)[None, :, None, None].to(x.dtype) for a in (cos, sin))
+    return lambda: qk * c + torch.cat([-qk[..., half:], qk[..., :half]], dim=-1) * s_
+
+
+def dinov3_pieces(torch, x0, p, vit_cfg, rope, split):
+    """Kernel 1's three DINOv3 launches on layer 0's operands: LayerNorm at
+    the 7B width, the qkv GEMM with RoPE (EPI_QKV_ROPE) and attention at
+    heads of 128. For each, its device ms in `split` (block_split's
+    launches, or None where torch.profiler lost kernels), the CUDA-event ms
+    of the twin's code for it and of the PyTorch calls that compute the
+    same function, and its bound."""
+    from foundpose_torch.ops import vit_block as vb
+
+    F = torch.nn.functional
+    b, t, d = x0.shape
+    m, h, hd, eps = b * t, vit_cfg.num_heads, vit_cfg.head_dim, vit_cfg.layer_norm_eps
+    kernel_ms = {r["launch"]: r["ms"] for r in split} if isinstance(split, list) else {}
+    xn = vb.layer_norm(x0, p["norm1_scale"], p["norm1_bias"], eps)
+    q, k, v = vb.plain_qkv(xn, p, h, hd, rope)
+    q16, k16, v16 = (a.to(x0.dtype) for a in (q, k, v))
+    w = p["qkv_weight"]
+    rotate = library_rotation(torch, x0, rope, h, hd)
+    cos, sin, _ = rope
+    pieces = {
+        "layernorm_4096": dict(
+            launch="LN1", kernel_name="layernorm_kernel<32>",
+            twin=lambda: vb.layer_norm(x0, p["norm1_scale"], p["norm1_bias"], eps),
+            library=lambda: F.layer_norm(x0, (d,), p["norm1_scale"], p["norm1_bias"], eps),
+            library_is="F.layer_norm", flops=0, bytes=2 * nbytes(x0)),
+        "qkv_rope_gemm": dict(
+            launch="qkv GEMM", kernel_name="gemm_kernel<5> (EPI_QKV_ROPE)",
+            twin=lambda: vb.plain_qkv(xn, p, h, hd, rope),
+            library=lambda: (F.linear(xn, w, p["qkv_bias"]), rotate()),
+            library_is="F.linear, then the rotation of q and k (library_rotation)",
+            flops=2 * m * d * 3 * d,
+            bytes=nbytes(xn, w, p["qkv_bias"], cos, sin) + m * 3 * d * x0.element_size()),
+        "attention_hd128": dict(
+            launch="attention", kernel_name="attention_kernel<128, ·>",
+            twin=lambda: vb.plain_attention(q, k, v, t, vit_cfg.softmax_stabilizer, x0.dtype),
+            library=lambda: F.scaled_dot_product_attention(q16, k16, v16),
+            library_is="scaled_dot_product_attention", flops=4 * b * h * t * t * hd,
+            bytes=nbytes(q16, k16, v16) + nbytes(x0)),
+    }
+    res = {}
+    for name, pc in pieces.items():
+        bms, by = bound(pc["flops"], pc["bytes"], "bf16")
+        ms = kernel_ms.get(pc["launch"])
+        res[name] = dict(
+            kernel=pc["kernel_name"], ms=ms, plain_ms=cuda_ms(torch, pc["twin"]),
+            library_ms=cuda_ms(torch, pc["library"]), library_is=pc["library_is"],
+            bound_ms=bms, bound_by=by, share=None if ms is None else bms / ms,
+            max_abs_err=None)
+    return res
+
+
+def phase_dinov3(torch, device, opts=None, batch=DINOV3_BATCH):
+    """Phase 19 (see the module docstring): kernel 1 at DINOv3 ViT-7B/16."""
+    from foundpose_torch.models import dinov2, dinov3
+    from foundpose_torch.ops.vit_block import fused_vit_block, fused_vit_block_plain
+    from foundpose_torch.pipeline import inference
+    from foundpose_torch.structs import PinholeCamera
+    from foundpose_torch.synthetic import realistic_repre
+    from perfbench import models as families
+
+    if opts is None:
+        with open(DINOV3_CONFIG) as f:
+            opts = json.load(f)["infer_opts"]
+    config = inference.inference_config_from_opts(opts)
+    vit_cfg = inference.vit_config_from_opts(opts)
+    fam = families.family("dinov3")
+    t0 = time.perf_counter()
+    model, _, _ = fam.program(fam.make_weights(fam.shape(opts), DINOV3_WEIGHTS_SEED, device),
+                              opts, device)
+    torch.cuda.synchronize()
+    res = {"weights_seconds": time.perf_counter() - t0}
+    crop = config.crop_size[0]
+    gen = torch.Generator(device=device).manual_seed(19)
+    crops = torch.randint(0, 256, (batch, crop, crop, 3), dtype=torch.uint8, generator=gen,
+                          device=device)
+    x0, (gh, gw) = dinov3.embed_tokens(model, inference.preprocess_crops(crops, config))
+    rope = (*dinov3.rope_tables(gh, gw, device, vit_cfg.head_dim, vit_cfg.rope_base),
+            1 + vit_cfg.storage_tokens)
+    log(19, f"DINOv3 {vit_cfg.variant}: the cell's weights (seed {DINOV3_WEIGHTS_SEED}) made on "
+            f"the card in {res['weights_seconds']:.1f} s; x0 {list(x0.shape)} bf16, "
+            f"{vit_cfg.num_heads} heads of {vit_cfg.head_dim}, RoPE tables "
+            f"{list(rope[0].shape)}, prefix {rope[2]}")
+
+    with torch.no_grad():
+        # (a) The block with RoPE through the facet's layers, against the twin.
+        res["kernel"] = block_vs_twin(torch, model, vit_cfg, x0, 19, rope=rope, f32_chain=True)
+        # (b) The same gates on layer 0 without RoPE (EPI_QKV at heads of 128).
+        p0 = model.blocks[0].kernel_params(torch.bfloat16)
+        kw = dict(seq_len=x0.shape[1], num_heads=vit_cfg.num_heads, head_dim=vit_cfg.head_dim,
+                  eps=vit_cfg.layer_norm_eps, softmax_stabilizer=vit_cfg.softmax_stabilizer)
+
+        def branch_err(got, ref):
+            return float(torch.linalg.vector_norm((got - ref).float())
+                         / torch.linalg.vector_norm((ref - x0).float()))
+
+        y_plain = fused_vit_block(x0, p0, **kw)
+        plain_err = branch_err(y_plain, fused_vit_block_plain(x0, p0, **kw))
+        plain_ms = cuda_ms(torch, lambda: fused_vit_block(x0, p0, **kw))
+        # (c) A wrong rotation fails the branch gate: the kernel with RoPE
+        # against the twin with none, with the opposite angle and with the
+        # grid's two axes swapped.
+        y = fused_vit_block(x0, p0, rope=rope, **kw)
+        cos, sin, prefix = rope
+        half = cos.shape[1] // 2
+        swap = torch.cat([torch.arange(half, 2 * half), torch.arange(half)]).to(device)
+        wrong = {"none": None, "opposite angle": (cos, -sin, prefix),
+                 "axes swapped": (cos[:, swap].contiguous(), sin[:, swap].contiguous(), prefix)}
+        wrong_err = {name: branch_err(y, fused_vit_block_plain(x0, p0, rope=r, **kw))
+                     for name, r in wrong.items()}
+        right_err = branch_err(y, fused_vit_block_plain(x0, p0, rope=rope, **kw))
+        res.update(no_rope=dict(branch_rel_l2=plain_err, ms=plain_ms),
+                   wrong_rotation_branch_rel_l2=wrong_err, rope_branch_rel_l2=right_err)
+        log(19, f"(b) layer 0 without RoPE: branch rel L2 {plain_err:.2e} (tol {BRANCH_REL_L2}), "
+                f"{plain_ms:.3f} ms (with RoPE {res['kernel']['ms']:.3f}); (c) the kernel with "
+                f"RoPE against the twin with a wrong rotation, branch rel L2: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in wrong_err.items())
+                + f" (the right one {right_err:.2e}; each wrong one must exceed {BRANCH_REL_L2})")
+        check(plain_err <= BRANCH_REL_L2, f"layer 0 without RoPE: branch rel L2 {plain_err}")
+        check(all(v > BRANCH_REL_L2 for v in wrong_err.values()),
+              f"a wrong rotation passes the branch gate: {wrong_err}")
+        # (d) Kernel 1's three new launches, timed beside the twin and library.
+        res["pieces"] = dinov3_pieces(torch, x0, p0, vit_cfg, rope, res["kernel"].get("split"))
+        log(19, "(d) " + "; ".join(
+            f"{k} ({v['kernel']}): kernel " + ("not measured" if v["ms"] is None
+                                               else f"{v['ms']:.4f}") + f" ms, twin "
+            f"{v['plain_ms']:.3f}, library {v['library_ms']:.4f} ({v['library_is']}), bound "
+            f"{v['bound_ms']:.4f} ({v['bound_by']})"
+            + ("" if v["share"] is None else f", {100 * v['share']:.1f}%")
+            for k, v in res["pieces"].items()))
+        del x0, y, y_plain
+
+        # (e) Launches from zero over one batch of the cell's step.
+        repre = realistic_repre(0, device, raw_dim=vit_cfg.embed_dim).cast_banks(
+            config.compute_dtype)
+        masks = torch.ones(batch, crop, crop, device=device)
+        cams = PinholeCamera(
+            f=torch.full((batch, 2), 600.0, device=device),
+            c=torch.full((batch, 2), crop / 2 - 0.5, device=device),
+            T_world_from_eye=torch.eye(4, device=device).expand(batch, 4, 4).contiguous(),
+            width=crop, height=crop)
+        torch.cuda.synchronize()
+        reset_counts()
+        fused_vit_block.rope_launches = 0
+        builds = dinov3.rope_tables.builds
+        out = inference.pose_from_crops(model, crops, masks, cams, repre, config,
+                                        generator=torch.Generator(device=device).manual_seed(1))
+        torch.cuda.synchronize()
+        launches = dict(read_counts(), rope_launches=fused_vit_block.rope_launches)
+        res["launches"] = launches
+        res["rope_tables_builds"] = dinov3.rope_tables.builds - builds
+        log(19, f"(e) launches from zero over one batch of {batch}: {launches}; RoPE tables "
+                f"built {res['rope_tables_builds']} times (cached)")
+        depth = dinov2.facet_depth(vit_cfg)
+        check_launches(read_counts(), dict(vit_block=depth, buddies=1, ransac_score=1, refine=1),
+                       "dinov3 batch")
+        check(launches["rope_launches"] == depth and res["rope_tables_builds"] == 0,
+              f"rope launches {launches['rope_launches']}, table builds "
+              f"{res['rope_tables_builds']}")
+        check(bool(torch.isfinite(out.R_m2c).all()), "dinov3 batch: poses not finite")
+    del model, repre
+    torch.cuda.empty_cache()
+    return res
+
+
 # Phase 14: the bench layer's three entry points, called in this process.
 VITL_EXTRACTOR = "dinov2_version=vitl14_stride=14_facet=key_layer=18_norm=1"
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_crops_per_sec",
@@ -3806,6 +4053,7 @@ def main():
     # of 20 scorer launches, and the launch splits and request profiles
     # need them all.
     report["vitl"] = phase_vitl(torch, device)
+    report["dinov3"] = phase_dinov3(torch, device)
     report["vitg"], vitg_tp_state = phase_vitg(torch, device)
     report["bench"] = phase_bench(torch)
     report["datasets"] = phase_datasets(torch, params, vit_cfg, device)
@@ -3850,6 +4098,8 @@ def main():
                "mesh TP (1, 2, 2) vitg14 layer=1 lmo_exact.json, rank 0":
                    report["vitg"]["tp"]["ranks"][0]["launches"],
                "vitl14 lmo_vitl.json": report["vitl"]["main_path"]["launches"],
+               "dinov3 vit7b16 lmo_dinov3vit7b16, one batch of 32": {
+                   k: v for k, v in report["dinov3"]["launches"].items() if k != "rope_launches"},
                "PoseEngine lmo_exact.json, one estimate()":
                    report["serving"]["host_syncs_before_fetch"]["lmo_exact.json"]["launches"],
                "PoseEngine lmo.json switches, one estimate()":
@@ -3909,6 +4159,17 @@ def main():
             g = report["vitl"]["kernel"]
             entry["gelu_vitl"] = {key: g[key] for key in keys}
             entry["gelu_vitl"]["launches"] = report["vitl"]["main_path"]["launches"]["vit_block"]
+            # the SwiGLU body with RoPE at heads of 128, DINOv3 ViT-7B/16 (phase 19),
+            # and its three new launches one by one
+            g = report["dinov3"]
+            entry["dinov3_vit7b16"] = {key: g["kernel"][key] for key in keys}
+            entry["dinov3_vit7b16"].update(launches=g["launches"]["vit_block"],
+                                           rope_launches=g["launches"]["rope_launches"])
+            for piece, row in g["pieces"].items():
+                entry[f"dinov3_vit7b16_{piece}"] = dict(
+                    {key: row[key] for key in keys},
+                    launches=g["launches"]["vit_block"] * (2 if piece.startswith("layernorm")
+                                                           else 1))
         kernels.append(entry)
     log(16, f"the whole smoke took {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "fp_vit_block": [_P] * 21 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
+    "fp_vit_block": [_P] * 21 + [_I] * 6 + [_F, _F, _I, _I, _I] + [_I, _P, _P, _I, _P],
     "fp_cycle_distances": [_P] * 9 + [_I] * 7 + [_P],
     "fp_score_hypotheses": [_P] * 7 + [_F, _P] + [_I] * 3 + [ctypes.c_longlong] * 7 + [_P],
     "fp_attention": [_P] * 4 + [_I] * 5 + [_F, _P],

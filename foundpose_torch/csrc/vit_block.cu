@@ -1,12 +1,14 @@
-// One pre-norm DINOv2 transformer block on Hopper, as seven hand-written
+// One pre-norm ViT block (DINOv2, DINOv3) on Hopper, as seven hand-written
 // kernels launched in sequence by fp_vit_block:
 //
 //   LN1 -> GEMM(qkv, bias, q scaled) -> attention -> GEMM(proj, bias,
 //   layer-scaled residual) -> LN2 -> GEMM(fc1, bias, GELU) -> GEMM(fc2, bias,
 //   layer-scaled residual)
 //
-// or, for SwiGLU models (DINOv2 ViT-G/14), GEMM(w12, bias, silu(gate) *
-// value) -> GEMM(w3, bias, layer-scaled residual) in place of fc1 and fc2.
+// or, for SwiGLU models (DINOv2 ViT-G/14, DINOv3 ViT-7B/16), GEMM(w12, bias,
+// silu(gate) * value) -> GEMM(w3, bias, layer-scaled residual) in place of
+// fc1 and fc2. Heads are 64 or 128 wide; with rotary tables (DINOv3) the qkv
+// GEMM rotates q and k of the patch tokens in its epilogue (EPI_QKV_ROPE).
 //
 // Replaces: foundpose_tpu/ops/vit_block.py:_block_kernel (the Pallas kernel
 // that runs the whole block for one image per grid step, with the image's
@@ -58,12 +60,26 @@
 //   buffer; q's fragments load once from it. "capped" is one pass over the
 //   keys (no max, no rescaling); "column" a first pass for the row max and
 //   a second for the weights. exp2 comes from the SFU (ex2.approx).
-// - LayerNorm: one warp per token row, 8-byte loads, the row in registers.
+// - RoPE (DINOv3's axial 2-D rotary positions, the TPU kernel has none):
+//   at head dim 128 a 128-wide N tile of q or k is exactly one head, and
+//   head columns c and c + 64, which the rotation pairs, sit in one thread
+//   of the m64n128 accumulator (acc[4j + e] and acc[4(j + 8) + e]), as the
+//   SwiGLU gate/value pair does. So the qkv GEMM's epilogue rotates the f32
+//   accumulator of rows whose token index t = row mod T is at least
+//   `prefix` (the class and storage tokens are not rotated), with cos and
+//   sin from [T - prefix, 64] f32 tables (230 KB each at a 30 x 30 grid;
+//   the tile's 128 rows copied into the free ring by cp.async at once),
+//   before the q scale and the single cast to bf16: no extra pass over q
+//   and k, no f32 copy of them.
+// - LayerNorm: one warp per token row, 8-byte loads, the row in registers
+//   (up to d = 4,096: 128 values a lane).
 //   LN is 5% of the block (2% of the first form's; split in PERF.md), so
 //   it is not folded into the GEMMs.
 //
 // Rounding points follow the TPU kernel (ops/vit_block.py):
 //  - log2(e)/sqrt(hd) is folded into q before q is cast to bf16;
+//  - RoPE: q and k rotated in f32 (x1 cos - x2 sin, x2 cos + x1 sin, each
+//    product and sum rounded to f32) before the q scale and the bf16 cast;
 //  - "capped" softmax: p = min(exp2(l), 1e30) with no max; "column": the
 //    per-query max over all keys is subtracted (a first pass over the keys
 //    finds it, so p is the same value the TPU kernel forms);
@@ -83,7 +99,7 @@ using fp::f2bf;
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per token row; statistics in f32, output bf16.
 // ---------------------------------------------------------------------------
-constexpr int LN_THREADS = 256, LN_MAX_CHUNKS = 12;  // 4 values a chunk: d <= 1536
+constexpr int LN_THREADS = 256, LN_MAX_CHUNKS = 32;  // 4 values a chunk: d <= 4096
 
 // NC = ceil(d / 128) chunks of 4 values a lane: the row stays in 4 * NC
 // registers (a kernel sized for the widest row held 66 registers at d =
@@ -150,7 +166,8 @@ __global__ void __launch_bounds__(LN_THREADS)
 // GEMM: C[M, N] = A[M, K] . W[N, K]^T (W in nn.Linear layout) + epilogue.
 // TMA + wgmma, one 128 x 128 tile per block: warps 0-7 are two consumer
 // warpgroups (64 rows each), warp 8 the TMA producer. EPI_SWIGLU: W is
-// [2N, K] and a block writes 128 x 64 of C (TILE_N).
+// [2N, K] and a block writes 128 x 64 of C (TILE_N). EPI_QKV_ROPE: N = 3 x
+// 128 x heads, a tile is one head of q, k or v.
 // ---------------------------------------------------------------------------
 constexpr int GM = 128, GN = 128, GK = 64;  // GK bf16 = one 128-byte swizzle row
 constexpr int G_STAGES = 3;
@@ -159,8 +176,22 @@ constexpr int G_A_BYTES = GM * 128, G_STAGE_BYTES = G_A_BYTES + GN * 128;
 constexpr int G_SROW = GN + 8;  // bf16 a row of the epilogue staging: 272 bytes, conflict-free
 constexpr size_t G_SMEM = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * sizeof(uint64_t);
 static_assert(GM * G_SROW * sizeof(bf16) <= G_STAGES * G_STAGE_BYTES, "staging fits the ring");
+// EPI_QKV_ROPE's tables of a tile's rows in the ring: f32 a row of 64 and 8
+// of padding (2-way bank conflicts at most on a warp's float2 reads).
+constexpr int RT_LD = GN / 2 + 8;
+static_assert(2 * GM * RT_LD * sizeof(float) <= G_STAGES * G_STAGE_BYTES, "tables fit the ring");
 
-enum Epilogue { EPI_QKV = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESID = 3, EPI_SWIGLU = 4 };
+enum Epilogue {
+  EPI_QKV = 0, EPI_GELU_TANH = 1, EPI_GELU_ERF = 2, EPI_RESID = 3, EPI_SWIGLU = 4, EPI_QKV_ROPE = 5
+};
+
+// The rotary tables of EPI_QKV_ROPE: cos and sin [tokens - prefix, 64] f32,
+// row p for token prefix + p of every image (tokens a image).
+struct Rope {
+  const float* cos;
+  const float* sin;
+  int tokens, prefix;
+};
 
 // Output columns of one tile: SwiGLU's 128 accumulator columns are 64 gate
 // and 64 value columns of the same 64 outputs.
@@ -202,7 +233,7 @@ __global__ void __launch_bounds__(G_THREADS, 2)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
                 const bf16* __restrict__ bias, bf16* __restrict__ C, int M, int N, int K,
                 const bf16* __restrict__ resid, const bf16* __restrict__ ls, int scale_cols,
-                float scale) {
+                float scale, const Rope rope) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -294,6 +325,76 @@ __global__ void __launch_bounds__(G_THREADS, 2)
         *reinterpret_cast<uint32_t*>(stg + (r0 + 8 * h) * G_SROW + col) = fp::pack_bf16(y0, y1);
       }
     }
+  } else if constexpr (EPI == EPI_QKV_ROPE) {
+    // The tile is one head: q (n0 < scale_cols = D), k (n0 < 2D) or v.
+    // Columns col and col + 64 (col < 64) are the rotation's pair. For q and
+    // k the consumers first copy the cos and sin rows of the tile's 128 rows
+    // into the free ring, all by cp.async at once (one round trip to L2, not
+    // one a column pair), then turn the accumulators in place into the
+    // output values, and stage them only after every thread has read the
+    // tables (the staging overwrites them).
+    const bool rotated = n0 < 2 * scale_cols;
+    const float sc = n0 < scale_cols ? scale : 1.f;
+    float* tab = reinterpret_cast<float*>(smem);  // [2][GM][RT_LD]: cos rows, then sin rows
+    if (rotated) {
+      for (int i = threadIdx.x; i < 2 * GM * (GN / 8); i += G_CONSUMERS) {
+        const int t = i / (GM * (GN / 8)), r = (i / (GN / 8)) % GM, c = 4 * (i % (GN / 8));
+        const int m = m0 + r;
+        const int p = m < M ? m % rope.tokens - rope.prefix : -1;
+        const float* src = (t ? rope.sin : rope.cos) + static_cast<size_t>(p < 0 ? 0 : p) * (GN / 2);
+        fp::cp_async16(tab + (t * GM + r) * RT_LD + c, src + c, p >= 0);
+      }
+      fp::cp_async_commit();
+      fp::cp_async_wait<0>();
+      fp::named_sync(1, G_CONSUMERS);
+    }
+    bool on[2];  // rows r0 and r0 + 8 of this warpgroup rotated
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wg + r0 + 8 * h;
+      on[h] = rotated && m < M && m % rope.tokens >= rope.prefix;
+    }
+#pragma unroll
+    for (int j = 0; j < GN / 16; ++j) {
+      const int col = 8 * j + 2 * (lane % 4), n = n0 + col;
+      const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n));
+      const float2 b2 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n + GN / 2));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* a1 = acc + 4 * j + 2 * h;             // column col
+        float* a2 = acc + 4 * (j + GN / 16) + 2 * h;  // column col + 64
+        float x1[2] = {__fadd_rn(a1[0], b1.x), __fadd_rn(a1[1], b1.y)};
+        float x2[2] = {__fadd_rn(a2[0], b2.x), __fadd_rn(a2[1], b2.y)};
+        if (on[h]) {
+          const float* cr = tab + (64 * wg + r0 + 8 * h) * RT_LD + col;
+          const float2 c = *reinterpret_cast<const float2*>(cr);
+          const float2 sn = *reinterpret_cast<const float2*>(cr + GM * RT_LD);
+          const float cv[2] = {c.x, c.y}, sv[2] = {sn.x, sn.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y1 = __fsub_rn(__fmul_rn(x1[e], cv[e]), __fmul_rn(x2[e], sv[e]));
+            const float y2 = __fadd_rn(__fmul_rn(x2[e], cv[e]), __fmul_rn(x1[e], sv[e]));
+            x1[e] = y1;
+            x2[e] = y2;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          a1[e] = __fmul_rn(x1[e], sc);
+          a2[e] = __fmul_rn(x2[e], sc);
+        }
+      }
+    }
+    if (rotated) fp::named_sync(1, G_CONSUMERS);  // every thread has read the tables
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(stg + (r0 + 8 * h) * G_SROW + col) =
+            fp::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < GN / 8; ++j) {
@@ -337,27 +438,49 @@ __global__ void __launch_bounds__(G_THREADS, 2)
 // Attention over the qkv buffer [B, T, 3D] (q pre-scaled by log2(e)/sqrt(hd)).
 // One block per (128-query tile, head, image); 8 warps, 16 query rows each.
 // Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of every
-// accumulator fragment, columns 2t and 2t + 1.
+// accumulator fragment, columns 2t and 2t + 1. Heads of HD = 64 or 128: at
+// 128 a warp's output rows take 64 f32 registers a lane and the K and V
+// double buffers 68 KB, so one block a SM, its buffers in dynamic shared
+// memory (HD = 64 keeps two blocks a SM and its static 36 KB).
 // ---------------------------------------------------------------------------
-constexpr int AQ = 128, AK = 64, HD = 64, ALD = HD + 8, ATHREADS = 256, ABLOCKS = 2;
+constexpr int AQ = 128, AK = 64, ATHREADS = 256;
 
-// Rows [r0, r0 + 64) of one head's 64 columns (row stride rs elements) by
+template <int HD>
+constexpr int ALD = HD + 8;  // bf16 a row of a K or V tile: conflict-free ldmatrix
+template <int HD>
+constexpr int A_TILE = AK * ALD<HD>;
+template <int HD>
+constexpr size_t A_DYN_SMEM = HD == 64 ? 0 : 4 * A_TILE<HD> * sizeof(bf16);
+
+// Rows [r0, r0 + 64) of one head's HD columns (row stride rs elements) by
 // cp.async; rows at or past `limit` are zero.
+template <int HD>
 __device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* __restrict__ src, size_t rs,
                                                int r0, int limit) {
   for (int i = threadIdx.x; i < AK * (HD / 8); i += ATHREADS) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     const bool ok = r0 + r < limit;
-    fp::cp_async16(dst + r * ALD + c, ok ? src + static_cast<size_t>(r0 + r) * rs + c : src, ok);
+    fp::cp_async16(dst + r * ALD<HD> + c, ok ? src + static_cast<size_t>(r0 + r) * rs + c : src, ok);
   }
 }
 
-template <bool CAPPED>
-__global__ void __launch_bounds__(ATHREADS, ABLOCKS)
+template <int HD, bool CAPPED>
+__global__ void __launch_bounds__(ATHREADS, HD == 64 ? 2 : 1)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int seq_len,
                      int D) {
-  __shared__ __align__(128) bf16 Ks[2][AK * ALD];
-  __shared__ __align__(128) bf16 Vs[2][AK * ALD];
+  constexpr int LD = ALD<HD>, TILE = A_TILE<HD>;
+  bf16* Ks;  // [2][TILE]
+  bf16* Vs;  // [2][TILE]
+  if constexpr (HD == 64) {
+    __shared__ __align__(128) bf16 Ks64[2][TILE];
+    __shared__ __align__(128) bf16 Vs64[2][TILE];
+    Ks = &Ks64[0][0];
+    Vs = &Vs64[0][0];
+  } else {
+    extern __shared__ unsigned char smem_raw[];
+    Ks = reinterpret_cast<bf16*>(smem_raw);
+    Vs = Ks + 2 * TILE;
+  }
   const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const size_t rs = 3 * static_cast<size_t>(D);
@@ -370,8 +493,8 @@ __global__ void __launch_bounds__(ATHREADS, ABLOCKS)
   auto issue = [&](int u) {
     if (u < steps) {
       const int tile = u < first_v ? u : u - first_v;
-      load_head_tile(Ks[u % 2], base + D, rs, tile * AK, seq_len);
-      if (u >= first_v) load_head_tile(Vs[u % 2], base + 2 * D, rs, tile * AK, seq_len);
+      load_head_tile<HD>(Ks + (u % 2) * TILE, base + D, rs, tile * AK, seq_len);
+      if (u >= first_v) load_head_tile<HD>(Vs + (u % 2) * TILE, base + 2 * D, rs, tile * AK, seq_len);
     }
     fp::cp_async_commit();
   };
@@ -400,11 +523,11 @@ __global__ void __launch_bounds__(ATHREADS, ABLOCKS)
   for (int u = 0; u < steps; ++u) {
     fp::cp_async_wait<1>();
     __syncthreads();
-    const bf16* Kb = Ks[u % 2];
+    const bf16* Kb = Ks + (u % 2) * TILE;
     if (!CAPPED && u < first_v) {  // pass 1: the row max
       float s[8][4];
 #pragma unroll
-      for (int np = 0; np < 4; ++np) fp::logits_pair<HD / 16, ALD>(s + 2 * np, qf, Kb, np, lane);
+      for (int np = 0; np < 4; ++np) fp::logits_pair<HD / 16, LD>(s + 2 * np, qf, Kb, np, lane);
       fp::mask_keys<8>(s, u * AK, t, seq_len);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -418,12 +541,12 @@ __global__ void __launch_bounds__(ATHREADS, ABLOCKS)
         }
       }
     } else {  // the weights, 16 keys at a time: S, then P = bf16(p) as A fragments, O += P V
-      const bf16* Vb = Vs[u % 2];
+      const bf16* Vb = Vs + (u % 2) * TILE;
       const int k0 = (u - first_v) * AK;
 #pragma unroll
       for (int j = 0; j < AK / 16; ++j) {
         float s[2][4];
-        fp::logits_pair<HD / 16, ALD>(s, qf, Kb, j, lane);
+        fp::logits_pair<HD / 16, LD>(s, qf, Kb, j, lane);
         fp::mask_keys<2>(s, k0 + 16 * j, t, seq_len);
         uint32_t a[4];
 #pragma unroll
@@ -445,7 +568,7 @@ __global__ void __launch_bounds__(ATHREADS, ABLOCKS)
 #pragma unroll
         for (int dp = 0; dp < HD / 16; ++dp) {  // dims 16dp .. 16dp + 15
           uint32_t bv[4];
-          fp::ldmatrix_x4_trans(bv, Vb + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * ALD + 16 * dp +
+          fp::ldmatrix_x4_trans(bv, Vb + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 16 * dp +
                                         8 * (lane / 16));
           fp::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
           fp::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
@@ -475,7 +598,7 @@ __global__ void __launch_bounds__(ATHREADS, ABLOCKS)
 template <int EPI>
 int launch_gemm(const bf16* A, const bf16* W, const bf16* bias, bf16* C, int M, int N, int K,
                 const bf16* resid, const bf16* ls, int scale_cols, float scale,
-                cudaStream_t stream) {
+                cudaStream_t stream, Rope rope = Rope{nullptr, nullptr, 1, 0}) {
   // Once per process and instantiation: shared memory past 48 KB.
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(G_SMEM));
@@ -492,7 +615,7 @@ int launch_gemm(const bf16* A, const bf16* W, const bf16* bias, bf16* C, int M, 
   if (rc) return rc;
   const dim3 grid((N + TN - 1) / TN, (M + GM - 1) / GM);
   gemm_kernel<EPI><<<grid, G_THREADS, G_SMEM, stream>>>(tm_a, tm_w, bias, C, M, N, K, resid, ls,
-                                                        scale_cols, scale);
+                                                        scale_cols, scale, rope);
   return fp::launch_status();
 }
 
@@ -505,6 +628,10 @@ int launch_layernorm(const bf16* x, const bf16* w, const bf16* b, bf16* out, int
     layernorm_kernel<nc><<<blocks, LN_THREADS, 0, stream>>>(x, w, b, out, rows, d, eps); break;
     FP_LN_CASE(1) FP_LN_CASE(2) FP_LN_CASE(3) FP_LN_CASE(4) FP_LN_CASE(5) FP_LN_CASE(6)
     FP_LN_CASE(7) FP_LN_CASE(8) FP_LN_CASE(9) FP_LN_CASE(10) FP_LN_CASE(11) FP_LN_CASE(12)
+    FP_LN_CASE(13) FP_LN_CASE(14) FP_LN_CASE(15) FP_LN_CASE(16) FP_LN_CASE(17) FP_LN_CASE(18)
+    FP_LN_CASE(19) FP_LN_CASE(20) FP_LN_CASE(21) FP_LN_CASE(22) FP_LN_CASE(23) FP_LN_CASE(24)
+    FP_LN_CASE(25) FP_LN_CASE(26) FP_LN_CASE(27) FP_LN_CASE(28) FP_LN_CASE(29) FP_LN_CASE(30)
+    FP_LN_CASE(31) FP_LN_CASE(32)
 #undef FP_LN_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -512,12 +639,25 @@ int launch_layernorm(const bf16* x, const bf16* w, const bf16* b, bf16* out, int
   return fp::launch_status();
 }
 
-template <bool CAPPED>
+template <int HD, bool CAPPED>
 int launch_attention(const bf16* qkv, bf16* out, int batch, int T, int seq_len, int D, int heads,
                      cudaStream_t stream) {
+  if constexpr (A_DYN_SMEM<HD> > 0) {  // once per process and instantiation: past 48 KB
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(attention_kernel<HD, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(A_DYN_SMEM<HD>));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
   const dim3 grid((T + AQ - 1) / AQ, heads, batch);
-  attention_kernel<CAPPED><<<grid, ATHREADS, 0, stream>>>(qkv, out, T, seq_len, D);
+  attention_kernel<HD, CAPPED><<<grid, ATHREADS, A_DYN_SMEM<HD>, stream>>>(qkv, out, T, seq_len, D);
   return fp::launch_status();
+}
+
+template <int HD>
+int launch_attention(bool capped, const bf16* qkv, bf16* out, int batch, int T, int seq_len, int D,
+                     int heads, cudaStream_t stream) {
+  return capped ? launch_attention<HD, true>(qkv, out, batch, T, seq_len, D, heads, stream)
+                : launch_attention<HD, false>(qkv, out, batch, T, seq_len, D, heads, stream);
 }
 
 }  // namespace
@@ -527,6 +667,9 @@ int launch_attention(const bf16* qkv, bf16* out, int batch, int T, int seq_len, 
 // first) and fc2_w/fc2_b are w3 [dim, hidden] / [dim], and gelu_tanh is not
 // read. The five scratch buffers are [batch*tokens, dim] (xn, attn, x1),
 // [.., 3*dim] (qkv) and [.., hidden] (h). Every pointer 16-byte aligned.
+// head_dim is 64 or 128. rope_cos and rope_sin, when not null, are the
+// rotary tables [tokens - rope_prefix, 64] f32 (head_dim 128 only): q and k
+// of tokens at or past rope_prefix are rotated.
 // Returns the first non-zero cudaGetLastError().
 FP_EXPORT int fp_vit_block(
     const void* x, void* out, const void* n1w, const void* n1b,
@@ -536,9 +679,14 @@ FP_EXPORT int fp_vit_block(
     const void* ls2, void* xn_buf, void* qkv_buf, void* attn_buf, void* x1_buf,
     void* h_buf, int batch, int tokens, int seq_len, int dim, int hidden,
     int num_heads, float eps, float q_scale, int gelu_tanh, int capped, int swiglu,
+    int head_dim, const void* rope_cos, const void* rope_sin, int rope_prefix,
     void* stream_ptr) {
-  if (dim != num_heads * HD || dim > 4 * 32 * LN_MAX_CHUNKS || hidden % 8 != 0 || hidden < 8 ||
-      seq_len < 1 || seq_len > tokens || batch < 1 || batch > 65535 || num_heads > 65535)
+  const bool rope = rope_cos != nullptr;
+  if ((head_dim != 64 && head_dim != 128) || dim != num_heads * head_dim ||
+      dim > 4 * 32 * LN_MAX_CHUNKS || hidden % 8 != 0 || hidden < 8 || seq_len < 1 ||
+      seq_len > tokens || batch < 1 || batch > 65535 || num_heads > 65535 ||
+      (rope && (head_dim != 128 || rope_sin == nullptr || rope_prefix < 0 ||
+                rope_prefix >= tokens)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int M = batch * tokens;
@@ -546,11 +694,21 @@ FP_EXPORT int fp_vit_block(
   auto Bm = [](void* p) { return static_cast<bf16*>(p); };
   int rc;
   if ((rc = launch_layernorm(B(x), B(n1w), B(n1b), Bm(xn_buf), M, dim, eps, stream))) return rc;
-  if ((rc = launch_gemm<EPI_QKV>(B(xn_buf), B(qkv_w), B(qkv_b), Bm(qkv_buf), M,
-                                 3 * dim, dim, nullptr, nullptr, dim, q_scale, stream)))
-    return rc;
-  rc = capped ? launch_attention<true>(B(qkv_buf), Bm(attn_buf), batch, tokens, seq_len, dim, num_heads, stream)
-              : launch_attention<false>(B(qkv_buf), Bm(attn_buf), batch, tokens, seq_len, dim, num_heads, stream);
+  if (rope)
+    rc = launch_gemm<EPI_QKV_ROPE>(
+        B(xn_buf), B(qkv_w), B(qkv_b), Bm(qkv_buf), M, 3 * dim, dim, nullptr, nullptr, dim, q_scale,
+        stream,
+        Rope{static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), tokens,
+             rope_prefix});
+  else
+    rc = launch_gemm<EPI_QKV>(B(xn_buf), B(qkv_w), B(qkv_b), Bm(qkv_buf), M, 3 * dim, dim, nullptr,
+                              nullptr, dim, q_scale, stream);
+  if (rc) return rc;
+  rc = head_dim == 64
+           ? launch_attention<64>(capped, B(qkv_buf), Bm(attn_buf), batch, tokens, seq_len, dim,
+                                  num_heads, stream)
+           : launch_attention<128>(capped, B(qkv_buf), Bm(attn_buf), batch, tokens, seq_len, dim,
+                                   num_heads, stream);
   if (rc) return rc;
   if ((rc = launch_gemm<EPI_RESID>(B(attn_buf), B(proj_w), B(proj_b), Bm(x1_buf), M,
                                    dim, dim, B(x), B(ls1), 0, 1.f, stream)))

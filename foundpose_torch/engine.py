@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from foundpose_torch.cameras import build_crop_cameras
-from foundpose_torch.models import dinov2
+from foundpose_torch import models
 from foundpose_torch.models.weights import load_or_init
 from foundpose_torch.ops.warp import make_single_image_warp
 from foundpose_torch.parallel import mesh as mesh_mod
@@ -63,22 +63,24 @@ class PoseEngine:
         extractor_overrides: Optional[Dict[str, Any]] = None,
         mesh_shape: Optional[Tuple[int, ...]] = None,
         device="cuda",
-        model: Optional[dinov2.DinoV2] = None,
+        model: Optional[torch.nn.Module] = None,
     ):
-        """extractor_overrides: DinoV2Config field overrides, e.g.
+        """extractor_overrides: field overrides of the backbone's config
+        (DinoV2Config, DinoV3Config), e.g.
         {"use_fused_block": True, "approx_gelu": True,
         "softmax_stabilizer": "capped"} with a bf16 config for the fused
         block. Without `weights_path` the ViT gets random weights from
-        `seed` (bench_weights.init_params).
+        `seed` (the family's `load_or_init`).
 
         mesh_shape: (data, bank) shards crops over `data` and every
         object's template bank over `bank`; (data, bank, model) also runs
         the ViT tensor-parallel (parallel/tp_vit). The data axis must
         divide batch_size, and a process group of prod(mesh_shape) ranks
         must be initialized (e.g. under torchrun); "cuda" then means this
-        rank's card (parallel/mesh.compute_device).
+        rank's card (parallel/mesh.compute_device). The mesh steps run
+        DINOv2 only (sharded_inference.prepare_mesh_vit_params).
 
-        model: a DinoV2 of the resolved configuration to serve, moved to
+        model: a ViT (DinoV2, DinoV3) of the resolved configuration to serve, moved to
         the device; `weights_path` and `seed` then make no weights."""
         self._mesh = None
         if mesh_shape:
@@ -88,7 +90,7 @@ class PoseEngine:
             self._mesh = mesh_mod.make_mesh(mesh_shape)
             device = mesh_mod.compute_device(device)
         self.device = torch.device(device)
-        self.vit_cfg = dinov2.parse_model_name(extractor_name)
+        self.vit_cfg = models.backbone(extractor_name).parse_model_name(extractor_name)
         if extractor_overrides:
             self.vit_cfg = dataclasses.replace(self.vit_cfg, **extractor_overrides)
         if model is None:

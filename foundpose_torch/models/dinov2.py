@@ -19,7 +19,7 @@ NHWC image layout.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import ClassVar, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from torch import nn
 
 from foundpose_torch.ops.attention import fused_attention_bhtd
 from foundpose_torch.structs import to_device
-from foundpose_torch.ops.vit_block import fused_vit_block, gelu, layer_norm, swiglu
+from foundpose_torch.ops.vit_block import Rope, fused_vit_block, gelu, layer_norm, swiglu
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -43,6 +43,8 @@ _VARIANTS = {
 
 @dataclasses.dataclass(frozen=True)
 class DinoV2Config:
+    family: ClassVar[str] = "dinov2"  # the model-name DSL's first field (models.backbone)
+
     variant: str = "vits14"
     embed_dim: int = 384
     depth: int = 12
@@ -183,10 +185,12 @@ class Block(nn.Module):
         """This layer's weights for ops/vit_block (its BLOCK_KEYS of the
         layer's MLP), all cast to `dtype` (the JAX package casts every block
         parameter, LayerNorm and layer scale included, to the compute
-        dtype)."""
+        dtype). A qkv projection without a bias (DINOv3's) gets zeros."""
+        qkv = self.attn.qkv
         src = {
             "norm1_scale": self.norm1.weight, "norm1_bias": self.norm1.bias,
-            "qkv_weight": self.attn.qkv.weight, "qkv_bias": self.attn.qkv.bias,
+            "qkv_weight": qkv.weight,
+            "qkv_bias": qkv.weight.new_zeros(qkv.out_features) if qkv.bias is None else qkv.bias,
             "proj_weight": self.attn.proj.weight, "proj_bias": self.attn.proj.bias,
             "ls1": self.ls1.gamma,
             "norm2_scale": self.norm2.weight, "norm2_bias": self.norm2.bias,
@@ -215,6 +219,10 @@ class DinoV2(nn.Module):
     @torch.no_grad()
     def forward(self, images_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
         return extract_facet(self, images_nhwc)
+
+
+# The family's module class, as `models.backbone` gives it.
+Model = DinoV2
 
 
 # ---------------------------------------------------------------------------
@@ -327,9 +335,12 @@ def mlp(xn: torch.Tensor, p: Dict[str, torch.Tensor], cfg: DinoV2Config) -> torc
     return F.linear(h, p["fc2_weight"], p["fc2_bias"])
 
 
-def run_blocks(model: DinoV2, x: torch.Tensor, upto: int) -> torch.Tensor:
+def run_blocks(model: DinoV2, x: torch.Tensor, upto: int,
+               rope: Optional[Rope] = None) -> torch.Tensor:
     """Runs blocks [0, upto): the fused block kernel or the unfused block,
-    by `cfg.use_fused_block` (CPU tensors take the plain twins)."""
+    by `cfg.use_fused_block` (CPU tensors take the plain twins); `rope`
+    (DINOv3, whose config takes the fused block only): the rotary tables
+    and prefix of q and k."""
     cfg = model.cfg
     for blk in list(model.blocks)[:upto]:
         p = blk.kernel_params(x.dtype)
@@ -345,6 +356,7 @@ def run_blocks(model: DinoV2, x: torch.Tensor, upto: int) -> torch.Tensor:
             eps=cfg.layer_norm_eps,
             approx_gelu=cfg.approx_gelu,
             softmax_stabilizer=cfg.softmax_stabilizer,
+            rope=rope,
         )
     return x
 
@@ -458,3 +470,16 @@ def make_extractor(model_name: str):
         return extract_facet(model, normalize_images(images_nhwc).to(compute_dtype))
 
     return cfg, extract
+
+
+def load_or_init(cfg: DinoV2Config, weights_path: Optional[str] = None, seed: int = 0) -> DinoV2:
+    """DinoV2 (eval mode, on the CPU) from an official-name checkpoint, or
+    without one bench_weights' random weights from `seed`."""
+    from foundpose_torch.models import bench_weights, weights  # both import this module
+
+    if weights_path:
+        return weights.load_checkpoint(weights_path, cfg)
+    model = DinoV2(cfg)
+    params = bench_weights.init_params(cfg, torch.Generator().manual_seed(seed))
+    model.load_state_dict(weights.state_dict_from_jax_params(params, cfg))
+    return model.eval()

@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from foundpose_torch.models import bench_weights
+from foundpose_torch import models
 from foundpose_torch.models.dinov2 import DinoV2, DinoV2Config
 
 
@@ -41,15 +41,11 @@ def load_checkpoint(path: str, cfg: DinoV2Config) -> DinoV2:
     return model.eval()
 
 
-def load_or_init(cfg: DinoV2Config, weights_path: Optional[str] = None, seed: int = 0) -> DinoV2:
-    """DinoV2 (eval mode, on the CPU) from an official-name checkpoint, or
-    without one bench_weights' random weights from `seed`."""
-    if weights_path:
-        return load_checkpoint(weights_path, cfg)
-    model = DinoV2(cfg)
-    params = bench_weights.init_params(cfg, torch.Generator().manual_seed(seed))
-    model.load_state_dict(state_dict_from_jax_params(params, cfg))
-    return model.eval()
+def load_or_init(cfg, weights_path: Optional[str] = None, seed: int = 0) -> torch.nn.Module:
+    """The ViT of `cfg`'s backbone family (eval mode, on the CPU) by the
+    family's `load_or_init`: from its checkpoint at `weights_path`, or
+    without one random weights from `seed`."""
+    return models.backbone(cfg.family).load_or_init(cfg, weights_path, seed)
 
 
 def module_from_jax_params(params_np: Dict[str, Any], cfg: DinoV2Config, device) -> DinoV2:

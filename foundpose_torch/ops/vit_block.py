@@ -1,4 +1,4 @@
-"""One pre-norm DINOv2 transformer block: the hand-written CUDA kernel
+"""One pre-norm ViT block (DINOv2, DINOv3): the hand-written CUDA kernel
 (csrc/vit_block.cu) and its plain PyTorch twin.
 
 Counterpart of foundpose_tpu/ops/vit_block.py, whose Pallas kernel runs
@@ -11,6 +11,10 @@ computes the same function at the same rounding points:
 - products take the inputs in the working dtype and accumulate in f32;
 - log2(e)/sqrt(head_dim) is folded into q before q is cast to the working
   dtype, and the softmax runs in base 2;
+- `rope` (DINOv3's axial RoPE; heads of 128): q and k of tokens at or past
+  its `prefix` are rotated in f32 by the [T - prefix, 64] f32 tables,
+  x1 cos - x2 sin and x2 cos + x1 sin over head columns c and c + 64, after
+  the bias and before the q scale and the one cast to the working dtype;
 - "capped" softmax: p = min(exp2(l), 1e30), no max reduction; "column":
   the per-query max is subtracted;
 - the normalizer is the f32 sum of p rounded to the working dtype, floored
@@ -22,13 +26,14 @@ computes the same function at the same rounding points:
 
 At f32 this coincides with the JAX package's unfused block. Keys at or past
 `seq_len` are masked out of the softmax; rows past it are computed but carry
-no meaning. The CUDA kernel takes bf16 only.
+no meaning. The CUDA kernel takes bf16 only, heads of 64 or 128, widths up
+to 4,096, and `rope` at heads of 128.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -85,35 +90,51 @@ def _linear_f32(x, w, b):
     return x.float() @ w.float().t() + b.float()
 
 
-def fused_vit_block_plain(
-    x: torch.Tensor,
-    p: Dict[str, torch.Tensor],
-    seq_len: Optional[int] = None,
-    num_heads: int = 6,
-    head_dim: int = 64,
-    eps: float = 1e-6,
-    approx_gelu: bool = False,
-    softmax_stabilizer: str = "column",
-) -> torch.Tensor:
-    """Plain PyTorch block over x [B, T, D]; `p` holds one layer's weights
-    (BLOCK_KEYS["gelu"] or ["swiglu"], nn.Linear layout) in x's dtype."""
-    b, t, d = x.shape
-    dt = x.dtype
-    seq_len = t if seq_len is None else seq_len
-    scale = head_dim ** -0.5 * _LOG2E
+Rope = Tuple[torch.Tensor, torch.Tensor, int]  # (cos, sin [T - prefix, hd / 2] f32, prefix)
 
-    xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
+
+def apply_rope(a: torch.Tensor, rope: Rope) -> torch.Tensor:
+    """Heads a [B, T, H, hd] f32 with tokens [prefix, T) rotated:
+    x1 cos - x2 sin and x2 cos + x1 sin over columns c and c + hd / 2 (the
+    reference's x cos + rotate_half(x) sin, product for product)."""
+    cos, sin, prefix = rope
+    half = a.shape[-1] // 2
+    x = a[:, prefix:]
+    x1, x2 = x[..., :half], x[..., half:]
+    c, s = cos[None, :, None], sin[None, :, None]
+    rotated = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([a[:, :prefix], rotated], dim=1)
+
+
+def plain_qkv(xn: torch.Tensor, p: Dict[str, torch.Tensor], num_heads: int, head_dim: int,
+              rope: Optional[Rope] = None):
+    """The twin's qkv GEMM over xn [B, T, D]: q (softmax scale folded in),
+    k and v heads [B, H, T, hd], f32 tensors holding xn's dtype, each cast
+    once from the f32 product, q and k rotated by `rope` before it."""
+    b, t, d = xn.shape
+    dt = xn.dtype
+    scale = head_dim ** -0.5 * _LOG2E
     qkv = _linear_f32(xn, p["qkv_weight"], p["qkv_bias"])  # [B, T, 3D] f32
+    q_f32, k_f32 = qkv[..., :d], qkv[..., d : 2 * d]
+    if rope is not None:
+        q_f32, k_f32 = (apply_rope(a.reshape(b, t, num_heads, head_dim), rope).reshape(b, t, d)
+                        for a in (q_f32, k_f32))
 
     def heads(a):
         return a.reshape(b, t, num_heads, head_dim).transpose(1, 2).float()
 
-    q = heads((qkv[..., :d] * scale).to(dt))
-    k = heads(qkv[..., d : 2 * d].to(dt))
-    v = heads(qkv[..., 2 * d :].to(dt))
+    return heads((q_f32 * scale).to(dt)), heads(k_f32.to(dt)), heads(qkv[..., 2 * d :].to(dt))
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: int,
+                    softmax_stabilizer: str, dt: torch.dtype) -> torch.Tensor:
+    """The twin's attention over `plain_qkv`'s heads (base-2 logits, keys
+    past `seq_len` masked), p cast to `dt` before the value product:
+    [B, T, D] in `dt`."""
+    b, h, t, hd = q.shape
     logits = q @ k.transpose(-1, -2)  # [B, H, Tq, Tk], base-2 logits
     if seq_len < t:
-        kmask = torch.zeros(t, device=x.device)
+        kmask = torch.zeros(t, device=q.device)
         kmask[seq_len:] = -torch.inf
         logits = logits + kmask
     if softmax_stabilizer == "capped":
@@ -125,7 +146,28 @@ def fused_vit_block_plain(
     pr = probs.to(dt).float()
     o = pr @ v
     s = torch.clamp_min(torch.sum(pr, dim=-1, keepdim=True), 1e-30)
-    attn = (o * (1.0 / s)).to(dt).transpose(1, 2).reshape(b, t, d)
+    return (o * (1.0 / s)).to(dt).transpose(1, 2).reshape(b, t, h * hd)
+
+
+def fused_vit_block_plain(
+    x: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    seq_len: Optional[int] = None,
+    num_heads: int = 6,
+    head_dim: int = 64,
+    eps: float = 1e-6,
+    approx_gelu: bool = False,
+    softmax_stabilizer: str = "column",
+    rope: Optional[Rope] = None,
+) -> torch.Tensor:
+    """Plain PyTorch block over x [B, T, D]; `p` holds one layer's weights
+    (BLOCK_KEYS["gelu"] or ["swiglu"], nn.Linear layout) in x's dtype."""
+    dt = x.dtype
+    seq_len = x.shape[1] if seq_len is None else seq_len
+
+    xn = layer_norm(x, p["norm1_scale"], p["norm1_bias"], eps)
+    q, k, v = plain_qkv(xn, p, num_heads, head_dim, rope)
+    attn = plain_attention(q, k, v, seq_len, softmax_stabilizer, dt)
 
     y = _linear_f32(attn, p["proj_weight"], p["proj_bias"]).to(dt)
     x = x + p["ls1"].to(dt) * y
@@ -148,12 +190,14 @@ def fused_vit_block(
     eps: float = 1e-6,
     approx_gelu: bool = False,
     softmax_stabilizer: str = "column",
+    rope: Optional[Rope] = None,
 ) -> torch.Tensor:
     """One block over x [B, T, D]: the CUDA kernel for a CUDA tensor, the
-    plain twin for a CPU tensor."""
+    plain twin for a CPU tensor. `rope`: (cos, sin, prefix), the rotary
+    tables [T - prefix, head_dim / 2] f32 of tokens [prefix, T)."""
     if x.device.type == "cpu":
         return fused_vit_block_plain(
-            x, p, seq_len, num_heads, head_dim, eps, approx_gelu, softmax_stabilizer
+            x, p, seq_len, num_heads, head_dim, eps, approx_gelu, softmax_stabilizer, rope
         )
     if softmax_stabilizer not in ("capped", "column"):
         raise ValueError(f"unknown softmax_stabilizer {softmax_stabilizer!r}")
@@ -164,11 +208,23 @@ def fused_vit_block(
     seq_len = t if seq_len is None else seq_len
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_vit_block: the CUDA kernel takes bfloat16, got {x.dtype}")
-    if head_dim != 64 or d != num_heads * head_dim or d % 32 or hidden % 32:
+    if head_dim not in (64, 128) or d != num_heads * head_dim or d > 4096 or hidden % 32:
         raise ValueError(
             f"fused_vit_block: unsupported shape d={d} heads={num_heads} "
             f"head_dim={head_dim} hidden={hidden}"
         )
+    tables = ()
+    if rope is not None:
+        cos, sin, prefix = rope
+        if head_dim != 128 or not 0 <= prefix < t:
+            raise ValueError(f"fused_vit_block: rope takes heads of 128 and a prefix in "
+                             f"[0, {t}), got head_dim={head_dim} prefix={prefix}")
+        for name, a in (("cos", cos), ("sin", sin)):
+            if a.dtype != torch.float32 or tuple(a.shape) != (t - prefix, head_dim // 2):
+                raise ValueError(f"fused_vit_block: rope {name} must be float32 "
+                                 f"{(t - prefix, head_dim // 2)}, got {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        tables = (cos, sin)
     if not 1 <= seq_len <= t:
         raise ValueError(f"seq_len={seq_len} outside [1, {t}]")
     w1_rows = 2 * hidden if swi else hidden
@@ -185,8 +241,8 @@ def fused_vit_block(
     for k, a in zip(keys, w):
         if a.dtype != torch.bfloat16:
             raise ValueError(f"fused_vit_block: {k} must be bfloat16, got {a.dtype}")
-    dev = _kernels.require_cuda("fused_vit_block", x, *w)
-    if any(a.data_ptr() % 16 for a in (x, *w)):
+    dev = _kernels.require_cuda("fused_vit_block", x, *w, *tables)
+    if any(a.data_ptr() % 16 for a in (x, *w, *tables)):
         raise ValueError("fused_vit_block: inputs must be 16-byte aligned (TMA, 16-byte loads)")
     m = b * t
     out = torch.empty_like(x)
@@ -199,12 +255,16 @@ def fused_vit_block(
         x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in w),
         xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), x1.data_ptr(), h.data_ptr(),
         b, t, seq_len, d, hidden, num_heads, eps, head_dim ** -0.5 * _LOG2E,
-        int(approx_gelu), int(softmax_stabilizer == "capped"), int(swi),
+        int(approx_gelu), int(softmax_stabilizer == "capped"), int(swi), head_dim,
+        *((a.data_ptr() for a in tables) if tables else (None, None)), rope[2] if tables else 0,
         _kernels.stream_ptr(dev),
     )
     _kernels.check(rc, "fp_vit_block")
     fused_vit_block.launches += 1
+    fused_vit_block.rope_launches += bool(tables)
     return out
 
 
 fused_vit_block.launches = 0
+# Of `launches`, those with rotary tables (the qkv GEMM's EPI_QKV_ROPE).
+fused_vit_block.rope_launches = 0

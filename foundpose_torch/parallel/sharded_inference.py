@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from foundpose_torch import models
 from foundpose_torch.models import dinov2
 from foundpose_torch.ops import sampling
 from foundpose_torch.ops.pca import pca_transform, pca_transform_gathered
@@ -219,7 +220,10 @@ def make_multi_object_mesh_step(mesh, config: inference.InferenceConfig,
 
 def prepare_mesh_vit_params(mesh, model: dinov2.DinoV2):
     """The ViT as the mesh step takes it: with a `model` axis this rank's
-    head and hidden shard (tp_vit.prepare_tp_params), else the model."""
+    head and hidden shard (tp_vit.prepare_tp_params), else the model. The
+    mesh steps run DINOv2 only."""
+    if models.backbone_of(model) is not dinov2:
+        raise ValueError(f"the multi-device layer runs DINOv2 only, not {model.cfg.family}")
     if MODEL_AXIS not in mesh.mesh_dim_names:
         return model
     return tp_vit.prepare_tp_params(

@@ -36,7 +36,7 @@ import torch
 
 from foundpose_torch import geometry
 from foundpose_torch.data import bop
-from foundpose_torch.models import dinov2
+from foundpose_torch import models
 from foundpose_torch.models import weights as weights_mod
 from foundpose_torch.ops import morphology, sampling
 from foundpose_torch.ops.kmeans import kmeans
@@ -127,11 +127,11 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_model(opts: GenRepreOpts, device) -> dinov2.DinoV2:
+def load_model(opts: GenRepreOpts, device) -> torch.nn.Module:
     """The ViT of the options on `device`: from weights_path, else
     bench_weights' random weights from seed 0 (as the infer CLI)."""
     if not opts.weights_path:
-        logger.warning("No DINOv2 weights_path given; using random init.")
+        logger.warning("No ViT weights_path given; using random init.")
     vit_cfg = inference.vit_config_from_opts(dataclasses.asdict(opts))
     return weights_mod.load_or_init(vit_cfg, opts.weights_path).to(device)
 
@@ -193,7 +193,7 @@ def load_template_arrays(
 
 
 def register_templates(
-    model: dinov2.DinoV2,
+    model: torch.nn.Module,
     grid_cell_size: float,
     crop_size: Tuple[int, int],
     images: torch.Tensor,
@@ -219,7 +219,8 @@ def register_templates(
     masks = (depths > 0).float() if masks is None else masks.float()
     # The fused block kernel takes bf16 only.
     dtype = torch.bfloat16 if model.cfg.use_fused_block else torch.float32
-    fmaps = dinov2.extract_facet(model, dinov2.normalize_images(images).to(dtype))[
+    vit = models.backbone_of(model)
+    fmaps = vit.extract_facet(model, vit.normalize_images(images).to(dtype))[
         "feature_maps"].float()
     eroded = morphology.erode(masks, 5, border="zero")
     points = sampling.grid_points(crop_size, grid_cell_size, device=images.device)
@@ -245,7 +246,7 @@ def tfidf_config_of(opts: GenRepreOpts) -> TfidfConfig:
 def generate_repre(
     opts: GenRepreOpts,
     metadata: List[dict],
-    model: Optional[dinov2.DinoV2] = None,
+    model: Optional[torch.nn.Module] = None,
     output_dir: Optional[str] = None,
     templates_dir: Optional[str] = None,
 ) -> ObjectRepre:
@@ -365,7 +366,8 @@ def generate_repre(
     return repre
 
 
-def generate_repre_from_list(opts: GenRepreOpts, model: Optional[dinov2.DinoV2] = None) -> None:
+def generate_repre_from_list(opts: GenRepreOpts,
+                             model: Optional[torch.nn.Module] = None) -> None:
     """Builds the representation of every object of the options (reference:
     scripts/gen_repre.py:380-398); objects are sharded over hosts."""
     device = resolve_device(opts.device)

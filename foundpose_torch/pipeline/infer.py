@@ -47,7 +47,6 @@ import torch.distributed as dist
 from foundpose_torch.cameras import build_crop_cameras
 from foundpose_torch.data import bop, detections as det_mod
 from foundpose_torch.eval.evaluator import EvaluatorPose
-from foundpose_torch.models import dinov2
 from foundpose_torch.models import weights as weights_mod
 from foundpose_torch.ops.warp import make_single_image_warp
 from foundpose_torch.parallel import host_shard
@@ -288,7 +287,7 @@ def stack_batch(padded: List[PendingInstance], device) -> Tuple[torch.Tensor, to
 
 
 def dispatch_batch(
-    model: dinov2.DinoV2,
+    model: torch.nn.Module,
     repre: ObjectRepre,
     config: inference.InferenceConfig,
     padded: List[PendingInstance],
@@ -723,7 +722,7 @@ def _setup(opts: InferOpts):
     return mesh, device, params, config, dist.get_rank() == 0
 
 
-def load_model(opts: InferOpts, device) -> Tuple[dinov2.DinoV2, inference.InferenceConfig]:
+def load_model(opts: InferOpts, device) -> Tuple[torch.nn.Module, inference.InferenceConfig]:
     """The ViT on `device` and the step's configuration, both resolved from
     the options by pipeline/inference (one mapping from options to
     configuration). Without weights_path the ViT gets bench_weights' random
@@ -731,7 +730,7 @@ def load_model(opts: InferOpts, device) -> Tuple[dinov2.DinoV2, inference.Infere
     o = dataclasses.asdict(opts)
     vit_cfg = inference.vit_config_from_opts(o)
     if not opts.weights_path:
-        logger.warning("No DINOv2 weights_path given; using random init.")
+        logger.warning("No ViT weights_path given; using random init.")
     model = weights_mod.load_or_init(vit_cfg, opts.weights_path)
     return model.to(device), inference.inference_config_from_opts(o)
 

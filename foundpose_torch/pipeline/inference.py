@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from foundpose_torch import geometry
+from foundpose_torch import models
 from foundpose_torch.models import dinov2
 from foundpose_torch.ops import sampling
 from foundpose_torch.ops.pca import pca_transform, pca_transform_gathered
@@ -97,15 +98,16 @@ def inference_config_from_opts(opts: Dict[str, Any]) -> InferenceConfig:
     )
 
 
-def vit_config_from_opts(opts: Dict[str, Any]) -> dinov2.DinoV2Config:
-    """DinoV2Config from an `infer_opts` dict: the extractor name, the GELU
+def vit_config_from_opts(opts: Dict[str, Any]):
+    """The backbone's config (DinoV2Config, DinoV3Config: `models.backbone`
+    of the extractor name) from an `infer_opts` dict: the extractor name, the GELU
     form, `use_fused_block` (JAX default False) and `vit_overrides`.
     `use_pallas_attention` has no counterpart: the unfused block always
     runs its attention through ops/attention. The fused block's CUDA kernel
     takes bf16 only, so a fused f32 configuration raises on the GPU."""
     o = opts.get("infer_opts", opts)
     cfg = dataclasses.replace(
-        dinov2.parse_model_name(o["extractor_name"]),
+        models.backbone(o["extractor_name"]).parse_model_name(o["extractor_name"]),
         approx_gelu=bool(o.get("approx_gelu", False)),
         use_fused_block=bool(o.get("use_fused_block", False)),
     )
@@ -440,7 +442,7 @@ def preprocess_crops(crops: torch.Tensor, config: InferenceConfig) -> torch.Tens
 
 @torch.no_grad()
 def pose_from_crops(
-    vit: dinov2.DinoV2,
+    vit: torch.nn.Module,
     crops: torch.Tensor,
     masks: torch.Tensor,
     cameras: PinholeCamera,
@@ -455,7 +457,8 @@ def pose_from_crops(
     with profiling.span("step"):
         with profiling.span("vit"):
             images = preprocess_crops(crops, config)
-            feature_maps = dinov2.extract_facet(vit, images)["feature_maps"].float()
+            feature_maps = models.backbone_of(vit).extract_facet(vit, images)[
+                "feature_maps"].float()
         return pose_from_features(
             feature_maps, masks.float(), cameras, repre, config, generator, draws
         )

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from foundpose_torch.models import dinov2
+from foundpose_torch import models
 from foundpose_torch.ops import sampling
 from foundpose_torch.ops.pca import pca_transform_gathered
 from foundpose_torch.ops.tfidf import tfidf_retrieve
@@ -86,7 +86,7 @@ def pose_from_features_multi(
 
 @torch.no_grad()
 def pose_from_crops_multi(
-    vit: dinov2.DinoV2,
+    vit: torch.nn.Module,
     crops: torch.Tensor,
     masks: torch.Tensor,
     cameras: PinholeCamera,
@@ -100,7 +100,8 @@ def pose_from_crops_multi(
     with profiling.span("step"):
         with profiling.span("vit"):
             images = inference.preprocess_crops(crops, config)
-            feature_maps = dinov2.extract_facet(vit, images)["feature_maps"].float()
+            feature_maps = models.backbone_of(vit).extract_facet(vit, images)[
+                "feature_maps"].float()
         return pose_from_features_multi(
             feature_maps, masks.float(), cameras, obj_idx, multi_repre, config, generator,
             draws,

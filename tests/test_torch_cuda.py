@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from foundpose_torch.benchmarks import micro_int8
+from foundpose_torch.models import dinov3
 from foundpose_torch.ops import sampling
 from foundpose_torch.ops.attention import attention_plain, fused_attention_bhtd
 from foundpose_torch.ops.buddies_kernel import cycle_distances, cycle_distances_plain
@@ -109,7 +110,7 @@ def test_vit_block_kernel_swiglu_matches_twin(dev, stabilizer, batch, tokens, se
 
 
 def test_vit_block_kernel_swiglu_at_vitg_width(dev):
-    """ViT-G/14 widths (d 1536 = the LayerNorm kernel's limit, 24 heads,
+    """ViT-G/14 widths (d 1536, 24 heads,
     SwiGLU hidden 4096; w3's K is 4096, 64 slices through the ring) at 2
     crops of 905 tokens: relative L2 <= 1e-2 on the output and on the
     residual branches."""
@@ -123,6 +124,72 @@ def test_vit_block_kernel_swiglu_at_vitg_width(dev):
     xf = x.float()
     for a, b in ((got, ref), (got - xf, ref - xf)):
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
+
+
+def _branch_errors(x, got, ref):
+    xf = x.float()
+    return [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in ((got, ref), (got - xf, ref - xf))]
+
+
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("batch,grid,seq_len", [(3, (6, 6), 41), (2, (5, 7), 30)])
+def test_vit_block_kernel_rope_matches_twin(dev, stabilizer, batch, grid, seq_len):
+    """Heads of 128 with RoPE in the qkv GEMM's epilogue (EPI_QKV_ROPE) on
+    5 prefix tokens and a grid of patches, SwiGLU (DINOv3's block at width
+    256): relative L2 <= 1e-2 on the output and the residual branches below
+    seq_len; 3 x 41 rows is ragged M, and a row's token is row mod T. Without
+    the tables the same weights give another answer (the rotation is on)."""
+    gen = torch.Generator().manual_seed(11)
+    d, hidden, prefix = 256, 512, 5
+    p = block_weights(gen, d, hidden, dev, swiglu=True)
+    tokens = prefix + grid[0] * grid[1]
+    x = torch.randn(batch, tokens, d, generator=gen).to(dev, torch.bfloat16)
+    cos, sin = dinov3.rope_tables(*grid, dev)
+    kw = dict(seq_len=seq_len, num_heads=2, head_dim=128, softmax_stabilizer=stabilizer)
+    before = fused_vit_block.launches, fused_vit_block.rope_launches
+    got = fused_vit_block(x, p, rope=(cos, sin, prefix), **kw)[:, :seq_len].float()
+    ref = fused_vit_block_plain(x, p, rope=(cos, sin, prefix), **kw)[:, :seq_len].float()
+    assert (fused_vit_block.launches, fused_vit_block.rope_launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert max(_branch_errors(x[:, :seq_len], got, ref)) < 1e-2
+    plain = fused_vit_block_plain(x, p, **kw)[:, :seq_len].float()
+    assert _branch_errors(x[:, :seq_len], plain, ref)[1] > 0.1
+
+
+@pytest.mark.parametrize("rope", [True, False])
+def test_vit_block_kernel_at_dinov3_7b_width(dev, rope):
+    """DINOv3 ViT-7B/16's block: x [2, 905, 4096] (cls, 4 storage tokens and
+    a 30 x 30 grid), 32 heads of 128, SwiGLU hidden 8192 (w3's K is 8192),
+    LayerNorm at 4,096 (32 chunks a lane), with and without RoPE: relative
+    L2 <= 1e-2 on the output and on the residual branches."""
+    gen = torch.Generator().manual_seed(12)
+    d, hidden = 4096, 8192
+    p = block_weights(gen, d, hidden, dev, swiglu=True)
+    p["qkv_weight"] = p["qkv_weight"] * 0.25  # logits of the size the 0.2 scale gives at d 256
+    x = torch.randn(2, 905, d, generator=gen).to(dev, torch.bfloat16)
+    cos, sin = dinov3.rope_tables(30, 30, dev)
+    kw = dict(num_heads=32, head_dim=128, eps=1e-5, softmax_stabilizer="capped",
+              rope=(cos, sin, 5) if rope else None)
+    got = fused_vit_block(x, p, **kw).float()
+    ref = fused_vit_block_plain(x, p, **kw).float()
+    assert max(_branch_errors(x, got, ref)) < 1e-2
+
+
+@pytest.mark.parametrize("d", [1664, 2048, 3072, 4096])
+def test_vit_block_kernel_layernorm_widths_to_4096(dev, d):
+    """Widths past the old LayerNorm cap of 1,536 (13, 16, 24 and 32 chunks
+    of 128 a row), heads of 64 and of 128: the residual branches, which both
+    LayerNorms feed, within relative L2 1e-2 of the twin."""
+    gen = torch.Generator().manual_seed(13)
+    hd = 64 if d == 1664 else 128
+    p = block_weights(gen, d, 512, dev)
+    p["qkv_weight"] = p["qkv_weight"] * (128 / d) ** 0.5
+    x = torch.randn(2, 77, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=d // hd, head_dim=hd, approx_gelu=True, softmax_stabilizer="column")
+    got = fused_vit_block(x, p, **kw).float()
+    ref = fused_vit_block_plain(x, p, **kw).float()
+    assert max(_branch_errors(x, got, ref)) < 1e-2
 
 
 @pytest.mark.parametrize("stabilizer", ["capped", "column"])
@@ -445,6 +512,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fused_vit_block(torch.zeros(1, 8, 96, device=dev, dtype=torch.bfloat16), p,
                         num_heads=3, head_dim=32)
+    cos, sin = dinov3.rope_tables(2, 3, dev)
+    xb = torch.zeros(1, 8, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # rope at heads of 64
+        fused_vit_block(xb, p, num_heads=2, head_dim=64, rope=(cos, sin, 2))
+    p128 = block_weights(torch.Generator().manual_seed(3), 256, 512, dev)
+    x128 = torch.zeros(1, 8, 256, device=dev, dtype=torch.bfloat16)
+    for bad in ((cos, sin, 1), (cos.double(), sin, 2), (cos, sin.cpu(), 2)):
+        with pytest.raises(ValueError):  # tables of another token count, dtype or device
+            fused_vit_block(x128, p128, num_heads=2, head_dim=128, rope=bad)
     grid = sampling.grid_points((84, 84), 14.0, device=dev)
     with pytest.raises(ValueError):
         cycle_distances(torch.zeros(1, 36, 16, device=dev), torch.ones(1, 36, dtype=torch.bool, device=dev),

@@ -180,3 +180,57 @@ def test_kernel_counters_are_the_main_path_wrappers():
     assert list(main) == ["vit_block", "buddies", "ransac_score", "attention", "refine"]
     assert all(isinstance(fn.launches, int) for fn in main.values())
     assert list(bench.kernel_counters()) == list(main) + ["mm_bf16", "mm_int8"]
+
+
+DINOV3 = dict(embed_dim=256, num_heads=2, depth=2)
+DINOV3_NAME = "dinov3_version=vit7b16_stride=16_facet=token_layer=1_norm=1"
+
+
+@pytest.fixture(scope="module")
+def world_dinov3():
+    """`world` with a tiny DINOv3 (heads of 128, RoPE, 4 storage tokens) at
+    96 px crops, a 6 x 6 grid of patch 16."""
+    import dataclasses
+
+    from foundpose_torch.models import dinov3
+
+    cfg = dataclasses.replace(dinov3.parse_model_name(DINOV3_NAME), **DINOV3)
+    model = load_or_init(cfg, seed=0)
+    repre = realistic_repre(0, num_templates=8, fmax=32, feat_dim=16, num_words=16, raw_dim=256,
+                            n_points=256)
+    crop = 96
+    config = inference.InferenceConfig(crop_size=(crop, crop), grid_cell_size=16.0,
+                                       top_n_templates=2, top_k_buddies=20, pnp_ransac_iter=16)
+    g = torch.Generator().manual_seed(1)
+    b = 3
+    crops = torch.randint(0, 256, (b, crop, crop, 3), dtype=torch.uint8, generator=g)
+    cams = PinholeCamera(f=torch.full((b, 2), 100.0), c=torch.full((b, 2), crop / 2 - 0.5),
+                         T_world_from_eye=torch.eye(4).expand(b, 4, 4), width=crop,
+                         height=crop)
+    return model, repre, config, crops, torch.ones(b, crop, crop), cams
+
+
+def test_dinov3_step_span_tree_and_counters(world_dinov3, monkeypatch):
+    """Inside `step/vit`, DINOv3 opens `rope`, `embed`, `blocks` and `facet`;
+    `dinov3.rope_tables.builds` counts the tables' cache misses (one for a
+    new grid, none after); `fused_vit_block.rope_launches` counts the
+    kernel's launches with tables and stays out of `kernel_counters()`, so
+    the launch total does not count them twice (the CPU runs the twin, no
+    launch)."""
+    from foundpose_torch.models import dinov3
+    from foundpose_torch.ops.vit_block import fused_vit_block
+
+    monkeypatch.setattr(dinov3, "_ROPE_CACHE", {})
+    builds, rope_launches = dinov3.rope_tables.builds, fused_vit_block.rope_launches
+    with profiling.record() as rec:
+        step(world_dinov3)
+        step(world_dinov3)
+    vit = ["step/vit/rope", "step/vit/embed", "step/vit/blocks", "step/vit/facet"]
+    one = STEP_PATHS[:2] + vit + STEP_PATHS[2:]
+    records = rec.spans()
+    assert [r.path for r in records] == one * 2
+    assert_tree(records)
+    assert dinov3.rope_tables.builds == builds + 1
+    assert fused_vit_block.rope_launches == rope_launches
+    assert "rope" not in " ".join(profiling.kernel_counters())
+
