@@ -20,8 +20,14 @@ Phases (each prints one line and raises on failure):
      are its own crops (batch_world_repre), so that the winners pose
      (counts and inlier masks equal to the twin's in every set, R within
      1e-4 and t within 5e-5 m in the sets with at least 12 inliers after
-     LO, at least half the sets; the twin's device kernels a call). Errors
-     against stated tolerances;
+     LO, at least half the sets; the twin's device kernels a call); RANSAC's
+     samples and minimal solves (csrc/hypotheses.cu) on every set
+     pose_from_crops passes them there (kernel 2's counts of its poses and
+     of the twin's equal on at least 90% of the hypotheses, each posed
+     set's first maximum equal; of the candidates, the hypotheses the twin
+     in float64 poses, as large a share within 1e-2 (R) and 2e-3 m (t) of
+     it as the float32 twin's, less 1%; the twin's device kernels a
+     call). Errors against stated tolerances;
      CUDA-event times of kernel, twin and, where one PyTorch call computes
      the same function, that call; the least time the card could take
      (bound). The block's seven launches (LN1, qkv,
@@ -47,10 +53,11 @@ Phases (each prints one line and raises on failure):
      launched 10 times a request and the block and buddies kernels never;
      one estimate() up to its one device-to-host fetch under the CUDA sync
      debug mode "error" (a host sync raises), at lmo_exact.json (launches
-     from zero: attention 10, scorer 1, refinement 1, nothing else) and
-     with lmo.json's
+     from zero: attention 10, hypotheses 1, scorer 1, refinement 1, nothing
+     else) and with lmo.json's
      switches (fused bf16 ViT on the block kernel, approximate top-k;
-     block 10, buddies 1, scorer 1, refinement 1, nothing else); cuDNN's TF32 switch does not change the results; card vs CPU
+     block 10, buddies 1, hypotheses 1, scorer 1, refinement 1, nothing
+     else); cuDNN's TF32 switch does not change the results; card vs CPU
      on one request with the same draws.
   6  the int8/bf16 GEMM probe through its entry point
      (foundpose_torch.benchmarks.micro_int8.run).
@@ -141,7 +148,7 @@ Phases (each prints one line and raises on failure):
      (c) pose_from_crops at batch 16 on an LM-O-scale synthetic
      representation with PCA 1536 -> 256, as phase 3 (warm-up windows, 30
      timed requests, stage split, peak memory, torch.profiler), and the
-     launches from zero over one request (block 40, buddies 1, scorer 1,
+     launches from zero over one request (block 40, buddies 1, hypotheses 1, scorer 1,
      refinement 1).
      (d) one registration chunk (16 templates) of configs/gen_repre/lmo.json
      with the ViT-G extractor, unfused f32: attention exactly 40 launches,
@@ -165,7 +172,7 @@ Phases (each prints one line and raises on failure):
      from utils/flops, the seven launches). (b) pose_from_crops at batch 16
      on an LM-O-scale synthetic representation with PCA 1024 -> 256, as
      phase 3, and the launches from zero over one request (block 18,
-     buddies 1, scorer 1, refinement 1).
+     buddies 1, hypotheses 1, scorer 1, refinement 1).
   14 (after phase 12, before phase 15) the bench layer's entry points in
      this process:
      foundpose_torch.benchmarks.bench at batch 128 with the stage split
@@ -176,7 +183,7 @@ Phases (each prints one line and raises on failure):
      facet's layers at [128, 905, 384] and [128, 901, 1024] on the step's
      crops, the buddies and the scorer on the operands one step passes
      them (128 crops x 5 templates); then the launches from zero over one
-     step (block 10 or 18, buddies 1, scorer 1, refinement 1, nothing
+     step (block 10 or 18, buddies 1, hypotheses 1, scorer 1, refinement 1, nothing
      else).
      Then benchmarks.latency with LAT_REPS = 20 (PoseEngine at
      batch 1, 8, 16) and benchmarks.featuremetric_bench (refinement off
@@ -193,14 +200,14 @@ Phases (each prints one line and raises on failure):
      (InferOpts' defaults: unfused f32 ViT on the attention kernel, exact
      top-k, RANSAC 200): per dataset crops/s by host clock, each object's
      load seconds (load_repre and the copy to the card), peak memory,
-     launches from zero (attention 10, scorer 1, refinement 1 a batch,
+     launches from zero (attention 10, hypotheses 1, scorer 1, refinement 1 a batch,
      block and buddies 0), one BOP19 CSV whose rows are the detections
      that solved.
      (b) infer at configs/infer/tudl.json and ycbv.json, infer_multi_object
      at configs/infer/tless.json over all 30 objects (batches mixing
      objects; kernel 3 reads banks indexed by object and template): the
      same figures, the mixed load's peak memory before the first batch
-     (< 30 GB), launches (block 10, buddies 1, scorer 1, refinement 1 a
+     (< 30 GB), launches (block 10, buddies 1, hypotheses 1, scorer 1, refinement 1 a
      batch); the card
      against the CPU through infer_multi_object at tless.json on image 0's
      first 4 detections with the same draws (phase 9's bounds).
@@ -208,7 +215,7 @@ Phases (each prints one line and raises on failure):
      foundpose_torch.benchmarks.micro_pnp, micro_buddies and
      micro_retrieval at their own sizes (each substage's CUDA-event ms,
      device ms under torch.profiler or "not measured", host launch calls,
-     and the kernel launches of one call: the scorer once in both RANSAC
+     and the kernel launches of one call: hypotheses and scorer once in both RANSAC
      substages, the refinement once in ransac_full(+lm), the buddies
      kernel once in real_match_batch),
      vit_stage_bench at batch 64 (block 10 launches a call) and
@@ -220,15 +227,15 @@ Phases (each prints one line and raises on failure):
      defaults. (d) first: kernels 3 and 2 against their twins (phase 2's
      gates) on the operands one fast-leg call passes them on (a)'s world
      and queries, the scorer at 400 and at 100 hypotheses, each call's
-     launches counted from zero (buddies 1, scorer 1, refinement 1). (a)
+     launches counted from zero (buddies 1, hypotheses 1, scorer 1, refinement 1). (a)
      run_parity:
      798 templates of 400 features, 256 dims, 2,048 words, 4,000 points, 100
      crops, top-5 / 300 buddies / 400 hypotheses; the host replica (numpy
      kNN, cv2 RANSAC and LM) against the port's exact f32 and fast bf16
      legs on the card: AR deltas <= 0.01, idf max |delta| < 1e-5,
      descriptor cosine > 0.999; the replica's seconds a crop, each leg's
-     wall, launches from zero (exact: scorer 1, refinement 1; fast: buddies
-     1, scorer 1, refinement 1).
+     wall, launches from zero (exact: hypotheses 1, scorer 1, refinement 1; fast: buddies
+     1, hypotheses 1, scorer 1, refinement 1).
      (b) featuremetric_leg at 100 crops: refinement off vs on, the rules of
      tests/test_cross_parity.py (>= 20 coarse successes, recall within one
      crop, median rotation and translation errors not worse). (c) the three
@@ -237,7 +244,7 @@ Phases (each prints one line and raises on failure):
      2 seeds of 96 templates, 4 cells each; select's oracle comes from the
      harness's memo of lm's: both score the same worlds): each one's JSON
      line, every cell's AR, wall ms and
-     launches (buddies 1, refinement 1, scorer 1, or 2 for a two-phase
+     launches (buddies 1, refinement 1, hypotheses and scorer 1, or 2 for a two-phase
      cell); every AR
      finite, each oracle AR >= 0.9; the pick is reported, not gated.
   18 (after phase 17, before phase 12 (e) and phase 11) the ViT parity leg
@@ -276,7 +283,7 @@ Phases (each prints one line and raises on failure):
      ms of the twin's code for it and of F.layer_norm, F.linear with the
      rotation, and scaled_dot_product_attention, each one's bound. (e)
      launches from zero over one batch of 32 (block 31, of them 31 with
-     RoPE, buddies 1, scorer 1, refinement 1; the RoPE tables cached).
+     RoPE, buddies 1, hypotheses 1, scorer 1, refinement 1; the RoPE tables cached).
 
 The second-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without CUDA the script exits non-zero and
@@ -397,6 +404,9 @@ KERNEL_SOURCES = {
     "refine": ("foundpose_torch/csrc/refine.cu",
                "none: foundpose_tpu/pose/pnp.py:554 lo_refine and :623 refine_pose_lm run "
                "under XLA"),
+    "ransac_dlt": ("foundpose_torch/csrc/hypotheses.cu",
+                   "none: foundpose_tpu/pose/pnp.py:456 ransac_pnp's sampling and :242 "
+                   "_dlt_pose_many run under XLA"),
 }
 
 
@@ -530,12 +540,14 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     result["attention"] = attention_vs_twin(torch, model, vit_cfg, crops)
     result["micro_mm"] = probe_vs_twin(torch, device)
 
-    # --- LO/LM refinement: the winners of a lmo.json request of 16 crops
-    # and of a batch of 128 (an offline step's), each crop's best of its
-    # top-5 sets of 300 correspondences, on a world whose first templates
-    # are those crops, so that the winners pose (with random crops and the
-    # synthetic world, a winner has 2-4 inliers and no pose to compare).
-    refine = {}
+    # --- LO/LM refinement and RANSAC's hypotheses: the winners of a
+    # lmo.json request of 16 crops and of a batch of 128 (an offline
+    # step's), each crop's best of its top-5 sets of 300 correspondences,
+    # and the samples and minimal solves of all those sets, on a world whose
+    # first templates are those crops, so that the winners pose (with random
+    # crops and the synthetic world, a winner has 2-4 inliers and no pose to
+    # compare).
+    refine, dlt = {}, {}
     for n_crops in (b, 128):
         crops, masks, cams = main_path_inputs(torch, device, n_crops)
         world = batch_world_repre(
@@ -547,8 +559,11 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
             generator=torch.Generator(device=device).manual_seed(1)))
         refine[n_crops] = refine_check(
             torch, args["refine"], 2, f"(the winners of {n_crops} crops at lmo.json)")
+        dlt[n_crops] = dlt_check(
+            torch, args["ransac_dlt"], 2, f"(the sets of {n_crops} crops at lmo.json)")
         del world, args
     result["refine"] = dict(refine[b], b128=refine[128])
+    result["ransac_dlt"] = dict(dlt[b], b128=dlt[128])
     return result
 
 
@@ -847,6 +862,100 @@ def refine_check(torch, args, phase, what):
                 library_ms=None)
 
 
+
+# The hypotheses kernel against its twin (`dlt_check`). What RANSAC uses
+# of it: kernel 2's counts of the two outputs equal on at least
+# DLT_COUNTS_EQUAL of the hypotheses, and the first maximum equal on every
+# posed set (its twin's best counts at least half its valid points; the
+# other sets match other templates' points, and their best poses are
+# rounding noise on both sides). The poses: the minimal DLT solves 12x12
+# normal equations in float32, whose smallest pivots sit at the level of
+# float32 rounding, so any float32 solve of it loses some samples that the
+# float64 twin solves (a non-positive pivot floored at 1e-30 turns the
+# inverse iteration elsewhere; on phase 2's operands ~1.5% of them, on
+# other hypotheses in the kernel and in the twin); so among the candidates,
+# the hypotheses whose pose in the float64 twin counts at least half its
+# set's valid points, the kernel must put as large a share within
+# DLT_R_ATOL and DLT_T_ATOL (metres) of the float64 twin as the float32
+# twin does, less DLT_SOLVED_SLACK.
+DLT_R_ATOL, DLT_T_ATOL, DLT_COUNTS_EQUAL, DLT_SOLVED_SLACK = 1e-2, 2e-3, 0.9, 0.01
+# f32 operations of one hypothesis: six points' 40 feature sums, the 12x12
+# system's build and Cholesky, four inverse-iteration solves, the sign and
+# scale, eight Newton polar steps.
+DLT_FLOPS_PER_HYPOTHESIS = 3000
+
+
+def dlt_check(torch, args, phase, what):
+    """dlt_hypotheses (csrc/hypotheses.cu) against dlt_hypotheses_plain and
+    the twin in float64 on the arguments `args` one call received, by the
+    rules above; the kernel's device time under torch.profiler (mean of 20
+    launches), the CUDA-event time of whole wrapper calls and the twin's,
+    the device kernels of one twin call, and the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundpose_torch.benchmarks import score_time
+    from foundpose_torch.pose import pnp
+
+    s, n = args["pts2d"].shape[:2]
+    h = args["draws"].shape[1]
+    rs, ts = pnp.dlt_hypotheses(**args)
+    r32, t32 = pnp.dlt_hypotheses_plain(**args)
+    rays = (args["pts2d"].double() - args["k_c"].double()[:, None]) / args["k_f"].double()[:, None]
+    r64, t64 = pnp._dlt_pose_many(args["pts3d"].double(), rays, args["valid"].double(),
+                                  pnp.sample_counts(args["valid"], args["draws"]).double())
+
+    def err(r, t):
+        return (r.double() - r64).abs().amax((-1, -2)), (t.double() - t64).abs().amax(-1)
+
+    vf = args["valid"].float()
+    eye = torch.eye(3, dtype=torch.float64, device=r64.device)
+    fin64 = torch.isfinite(r64).all(-1).all(-1) & torch.isfinite(t64).all(-1)
+    poses = ((rs, ts), (r32, t32), (torch.where(fin64[..., None, None], r64, eye).float(),
+                                     torch.where(fin64[..., None], t64, eye[2]).float()))
+    counts = [pnp.score_hypotheses(args["pts2d"], args["pts3d"], vf, r, t, args["k_f"],
+                                   args["k_c"], 10.0) for r, t in poses]
+    agree = float((counts[0] == counts[1]).float().mean())
+    best = [c.max(-1).values for c in counts[:2]]
+    half = 0.5 * vf.sum(-1, keepdim=True)
+    posed = best[1] >= half[:, 0]
+    best_equal = bool(torch.equal(best[0][posed], best[1][posed]))
+    cand = counts[2] >= half
+    (er, et), (er32, et32) = err(rs, ts), err(r32, t32)
+    ok = [(e_r <= DLT_R_ATOL) & (e_t <= DLT_T_ATOL) for e_r, e_t in ((er, et), (er32, et32))]
+    solved = [float(o[cand].float().mean()) for o in ok]
+    both = cand & ok[0] & ok[1]
+    r_max = float(er[both].max()) if bool(both.any()) else 0.0
+    call = lambda: pnp.dlt_hypotheses(**args)
+    twin = lambda: pnp.dlt_hypotheses_plain(**args)
+    dev_ms = score_time.device_ms(call, kernel="hypotheses_kernel")
+    event_ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, twin, reps=5, warm=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        twin()
+        torch.cuda.synchronize()
+    twin_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    inputs = [args[k] for k in ("pts2d", "pts3d", "valid", "k_f", "k_c", "draws")]
+    bms, by = bound(DLT_FLOPS_PER_HYPOTHESIS * s * h, nbytes(*inputs, rs, ts), "f32")
+    log(phase, f"dlt_hypotheses {s} sets x {n} pts x {h} hyps {what}: kernel 2's counts equal "
+               f"{agree:.5f} (tol {DLT_COUNTS_EQUAL}), first maximum equal on the "
+               f"{int(posed.sum())} posed sets {best_equal}; of the {int(cand.sum())} candidates "
+               f"within {DLT_R_ATOL} (R) and {DLT_T_ATOL} m (t) of the float64 twin: kernel "
+               f"{solved[0]:.5f}, float32 twin {solved[1]:.5f} (slack {DLT_SOLVED_SLACK}), R max "
+               f"abs {r_max:.2e} where both are; kernel device {fmt_ms(dev_ms, 4)} ms "
+               f"(torch.profiler, 20 launches), wrapper {event_ms:.4f} ms (CUDA events), twin "
+               f"{plain_ms:.3f} ms ({twin_kernels} device kernels a call); bound {bms:.5f} ms "
+               f"({by})")
+    check(agree >= DLT_COUNTS_EQUAL and best_equal and solved[0] >= solved[1] - DLT_SOLVED_SLACK,
+          f"hypotheses kernel disagrees with its twin {what}")
+    return dict(shape=[s, n, h], counts_equal=agree, posed_sets=int(posed.sum()),
+                first_max_equal=best_equal, candidates=int(cand.sum()), solved=solved[0],
+                twin_solved=solved[1], max_abs_err=r_max, ms=dev_ms, event_ms=event_ms,
+                plain_ms=plain_ms, twin_kernels=twin_kernels, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
 def attention_vs_twin(torch, model, vit_cfg, crops):
     """The attention kernel on the unfused f32 path's layer-0 q, k, v
     [16, 6, 905, 64] of the same crops, at f32 (the path) and bf16."""
@@ -1012,7 +1121,8 @@ def phase_main_path(torch, model, repre, config, device, phase=3, label="lmo.jso
     check(tuple(outs.R_m2w.shape) == (b, 3, 3) and tuple(outs.template_ids.shape)
           == (b, config.top_n_templates), "output shapes")
     check(all(launches[k] > 0 for k in ("vit_block", "buddies", "ransac_score", "refine"))
-          and launches["refine"] == launches["ransac_score"], f"kernels not launched: {launches}")
+          and launches["refine"] == launches["ransac_score"] == launches["ransac_dlt"],
+          f"kernels not launched: {launches}")
 
     splits = np.array([stage_split(torch, model, repre, config, crops, masks, cams, rgen)
                        for _ in range(5)])
@@ -1357,7 +1467,7 @@ def phase_serving(torch, params, device):
     check(launches["attention"] == requests * (vit_cfg.layer + 1),
           f"attention launched {launches['attention']} times in {requests} requests")
     check(launches["vit_block"] == 0 and launches["buddies"] == 0 and launches["ransac_score"] > 0
-          and launches["refine"] == launches["ransac_score"],
+          and launches["refine"] == launches["ransac_score"] == launches["ransac_dlt"],
           f"launches on the serving path: {launches}")
     q1, med, q3 = (float(v) for v in np.percentile(lat, [25, 50, 75]))
     res = dict(
@@ -1404,10 +1514,11 @@ def phase_serving(torch, params, device):
     res["host_syncs_before_fetch"] = {
         "lmo_exact.json": dispatch_sync_check(
             torch, engine, image, boxes,
-            dict(attention=dinov2.facet_depth(vit_cfg), ransac_score=1, refine=1)),
+            dict(attention=dinov2.facet_depth(vit_cfg), ransac_dlt=1, ransac_score=1, refine=1)),
         "lmo.json switches": dispatch_sync_check(
             torch, fast, image, boxes,
-            dict(vit_block=dinov2.facet_depth(fast_vit), buddies=1, ransac_score=1, refine=1)),
+            dict(vit_block=dinov2.facet_depth(fast_vit), buddies=1, ransac_dlt=1, ransac_score=1,
+                 refine=1)),
     }
     del fast
     log(5, "one estimate() up to its fetch under the CUDA sync debug mode \"error\": 0 host "
@@ -3250,8 +3361,8 @@ def phase_dinov3(torch, device, opts=None, batch=DINOV3_BATCH):
         log(19, f"(e) launches from zero over one batch of {batch}: {launches}; RoPE tables "
                 f"built {res['rope_tables_builds']} times (cached)")
         depth = dinov2.facet_depth(vit_cfg)
-        check_launches(read_counts(), dict(vit_block=depth, buddies=1, ransac_score=1, refine=1),
-                       "dinov3 batch")
+        check_launches(read_counts(), dict(vit_block=depth, buddies=1, ransac_dlt=1, ransac_score=1,
+                                           refine=1), "dinov3 batch")
         check(launches["rope_launches"] == depth and res["rope_tables_builds"] == 0,
               f"rope launches {launches['rope_launches']}, table builds "
               f"{res['rope_tables_builds']}")
@@ -3276,16 +3387,17 @@ LAT_REPS = 20
 
 def captured_operands(step):
     """The arguments one call of `step()` passes to the buddies kernel, to
-    the scorer and to the LO/LM refinement, by kernel name:
-    cycle_distances' five operands, score_hypotheses' as (a dict of its
-    operands, the inlier threshold), and refine_lo_lm's as a dict of all
-    its arguments."""
+    the hypotheses kernel, to the scorer and to the LO/LM refinement, by
+    kernel name: cycle_distances' five operands, score_hypotheses' as (a
+    dict of its operands, the inlier threshold), and dlt_hypotheses' and
+    refine_lo_lm's as a dict of all their arguments."""
     import inspect
 
     from foundpose_torch.pose import corresp, pnp
 
     got = {}
-    originals = corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm
+    originals = (corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm,
+                 pnp.dlt_hypotheses)
 
     class Grab:
         """Records a wrapper's arguments and calls it; its attributes (the
@@ -3308,14 +3420,16 @@ def captured_operands(step):
     corresp.cycle_distances = Grab("buddies", originals[0])
     pnp.score_hypotheses = Grab("ransac_score", originals[1])
     pnp.refine_lo_lm = Grab("refine", originals[2])
+    pnp.dlt_hypotheses = Grab("ransac_dlt", originals[3])
     try:
         step()
     finally:
-        corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm = originals
+        (corresp.cycle_distances, pnp.score_hypotheses, pnp.refine_lo_lm,
+         pnp.dlt_hypotheses) = originals
     ops = dict(got["ransac_score"])
     thr = ops.pop("inlier_thresh")
     return {"buddies": tuple(got["buddies"].values()), "ransac_score": (ops, thr),
-            "refine": dict(got["refine"])}
+            "refine": dict(got["refine"]), "ransac_dlt": dict(got["ransac_dlt"])}
 
 
 def bench_kernels(torch, s, label):
@@ -3323,7 +3437,8 @@ def bench_kernels(torch, s, label):
     gives them, with phase 2's gates: the block through the facet's layers
     on the step's own crops, the buddies and the scorer on the operands one
     step passes them; then the launches from zero over one step (the
-    facet's blocks, buddies 1, scorer 1, refinement 1, nothing else)."""
+    facet's blocks, buddies 1, hypotheses 1, scorer 1, refinement 1,
+    nothing else)."""
     from foundpose_torch.models import dinov2
     from foundpose_torch.pipeline import inference
 
@@ -3345,7 +3460,7 @@ def bench_kernels(torch, s, label):
     launches = read_counts()
     log(14, f"bench {label} batch {s.batch}: launches from zero over one step {launches}")
     check_launches(launches, dict(vit_block=dinov2.facet_depth(s.vit_cfg), buddies=1,
-                                  ransac_score=1, refine=1), f"bench {label} step")
+                                  ransac_dlt=1, ransac_score=1, refine=1), f"bench {label} step")
     res["launches"] = launches
     return res
 
@@ -3573,8 +3688,8 @@ def phase_datasets(torch, params, vit_cfg, device):
             check(sorted(int(k) for k in r["counts"]) == bop.OBJECT_IDS[ds]
                   and rows == r["successes"], f"sweep {ds}: {r['counts']}, {rows} CSV rows for "
                   f"{r['successes']} solved")
-            check_launches(r["launches"], dict(attention=10 * nb, ransac_score=nb, refine=nb),
-                           f"sweep {ds}")
+            check_launches(r["launches"], dict(attention=10 * nb, ransac_dlt=nb, ransac_score=nb,
+                                               refine=nb), f"sweep {ds}")
         check(sum(runs[ds]["successes"] for ds in SWEEP_DATASETS) > 0, "no detection solved")
 
         # (b) each dataset's own configuration: infer at tudl.json and
@@ -3596,8 +3711,8 @@ def phase_datasets(torch, params, vit_cfg, device):
                     f"{r['held_at_first_batch_bytes'] / 2**30:.2f} GiB, over the run "
                     f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['successes']} solved; launches "
                     f"{r['launches']}")
-            check_launches(r["launches"], dict(vit_block=10 * nb, buddies=nb, ransac_score=nb,
-                                               refine=nb), f"{what} {ds}.json")
+            check_launches(r["launches"], dict(vit_block=10 * nb, buddies=nb, ransac_dlt=nb,
+                                               ransac_score=nb, refine=nb), f"{what} {ds}.json")
         mixed = res["tless.json"]
         check(len(mixed["counts"]) == 30
               and mixed["peak_before_first_batch_bytes"] < MIXED_PEAK_LIMIT_BYTES,
@@ -3670,8 +3785,9 @@ def phase_micro(torch):
 
     res = {}
     for name, run, expect in (
-            ("micro_pnp", micro_pnp.run, {"ransac_no_lm": dict(ransac_score=1),
-                                          "ransac_full(+lm)": dict(ransac_score=1, refine=1)}),
+            ("micro_pnp", micro_pnp.run, {
+                "ransac_no_lm": dict(ransac_dlt=1, ransac_score=1),
+                "ransac_full(+lm)": dict(ransac_dlt=1, ransac_score=1, refine=1)}),
             ("micro_buddies", micro_buddies.run, {"real_match_batch": dict(buddies=1)}),
             ("micro_retrieval", micro_retrieval.run, {})):
         t0 = time.perf_counter()
@@ -3769,7 +3885,7 @@ def phase_parity(torch, device):
         reset_counts()
         ops = captured_operands(lambda: cross_parity.port_poses(fmaps, masks, world[0], cfg, device))
         launches = read_counts()
-        check_launches(launches, dict(buddies=1, ransac_score=1, refine=1),
+        check_launches(launches, dict(buddies=1, ransac_dlt=1, ransac_score=1, refine=1),
                        f"cross-parity fast-leg call at H {h}")
         if h == 400:
             kern["buddies"] = dict(buddies_vs_twin(torch, *ops["buddies"], 17),
@@ -3803,10 +3919,11 @@ def phase_parity(torch, device):
     check(not cross_parity.ar_gate_failed(rep), "cross_parity: an AR delta exceeds 1 point")
     check(rep["idf_max_delta"] < PARITY_IDF_ATOL and rep["template_desc_cosine_min"] > PARITY_DESC_COS,
           "cross_parity: the offline tf-idf disagrees with the replica's")
-    check(rep["launches_exact"] == {"buddies": 0, "ransac_score": 1, "refine": 1}
-          and rep["launches_fast"] == {"buddies": 1, "ransac_score": 1, "refine": 1},
+    check(rep["launches_exact"] == {"buddies": 0, "ransac_dlt": 1, "ransac_score": 1, "refine": 1}
+          and rep["launches_fast"] == {"buddies": 1, "ransac_dlt": 1, "ransac_score": 1,
+                                       "refine": 1},
           f"cross_parity legs launched {rep['launches_exact']} / {rep['launches_fast']}")
-    check_launches(rep["launches"], dict(buddies=1, ransac_score=2, refine=2),
+    check_launches(rep["launches"], dict(buddies=1, ransac_dlt=2, ransac_score=2, refine=2),
                    "cross_parity run_parity")
 
     # (b) featuremetric_leg at 100 crops: tests/test_cross_parity.py's rules.
@@ -3827,7 +3944,8 @@ def phase_parity(torch, device):
           and fm["median_rot_err_deg_on"] <= fm["median_rot_err_deg_off"]
           and fm["median_t_err_mm_on"] <= fm["median_t_err_mm_off"],
           "featuremetric refinement did not improve the poses")
-    check_launches(fm["launches"], dict(ransac_score=2, refine=2), "featuremetric_leg")
+    check_launches(fm["launches"], dict(ransac_dlt=2, ransac_score=2, refine=2),
+                   "featuremetric_leg")
 
     # (c) The three sweeps at their JAX defaults but for the crops
     # (SWEEP_CROPS); `picked` is a finding.
@@ -3849,11 +3967,10 @@ def phase_parity(torch, device):
         check(all(np.isfinite(ar) for _, _, ar, _, _ in cells)
               and min(oracle if isinstance(oracle, list) else [oracle]) >= ORACLE_AR_MIN,
               f"{name}: an AR is not finite or the oracle AR is below {ORACLE_AR_MIN}")
-        expect = {"buddies": 0, "ransac_score": 0, "refine": 0}
+        expect = {"buddies": 0, "ransac_dlt": 0, "ransac_score": 0, "refine": 0}
         for cell, _, _, _, n in cells:
-            want = {"buddies": 1,
-                    "ransac_score": 2 if cell.startswith("select") and cell != "select0" else 1,
-                    "refine": 1}
+            ransac = 2 if cell.startswith("select") and cell != "select0" else 1
+            want = {"buddies": 1, "ransac_dlt": ransac, "ransac_score": ransac, "refine": 1}
             check(n == want, f"{name} {cell} launched {n}, expected {want}")
             expect = {k: expect[k] + want[k] for k in want}
         check_launches(launches, expect, name)
@@ -4080,6 +4197,7 @@ def main():
         "attention": report["builder"]["lmo"]["launches"]["attention"],
         "micro_mm": report["probe"]["launches"]["mm_int8"],
         "refine": report["main_path"]["launches"]["refine"],
+        "ransac_dlt": report["main_path"]["launches"]["ransac_dlt"],
     }
     mesh = report["mesh"]
     by_path = {"lmo.json": report["main_path"]["launches"],
@@ -4145,7 +4263,7 @@ def main():
             if label.startswith(name):
                 entry[f"cross_parity{label[len(name):]}"] = {
                     key: k17[key] for key in keys + ("launches",)}
-        if name == "refine":  # the winners of 128 crops (phase 2; 16 above)
+        if name in ("refine", "ransac_dlt"):  # at 128 crops (phase 2; 16 above)
             entry["b128"] = {key: k["b128"][key] for key in keys}
             entry["b128"]["launches"] = report["bench"]["kernels vits14 b128"]["launches"][name]
         if name == "attention":  # on the ViT parity leg's [2, 6, 1374, 64] (phase 18)

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "fp_mm_bf16": [_P] * 3 + [_I] * 3 + [_P],
     "fp_mm_int8": [_P] * 3 + [_I] * 3 + [_P],
     "fp_refine_lo_lm": [_P] * 9 + [_F, _F, _I, _I] + [_P] * 4 + [_I, _I, _P],
+    "fp_dlt_hypotheses": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

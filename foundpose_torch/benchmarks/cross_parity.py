@@ -28,8 +28,8 @@ Beside the JAX script's keys (`ar_port_*` in place of `ar_jax_*`) the
 report has the offline tf-idf's seconds, the host threads the replica's
 crops ran on (`replica_sec_per_crop` is their wall over the crops; the JAX
 script's ran one at a time), each leg's wall between
-`torch.cuda.synchronize()` calls and its scorer, buddies and refinement
-launches counted from zero. Unless `--skip-vit`, the third leg (`vit_parity_leg`)
+`torch.cuda.synchronize()` calls and its hypotheses, scorer, buddies and
+refinement launches counted from zero. Unless `--skip-vit`, the third leg (`vit_parity_leg`)
 adds `vit_feature_max_delta_native` (518 px) and
 `vit_feature_max_delta_420_interp` (420 px, not a gate: the position
 embeddings' two interpolation recipes disagree there), the port's ViT
@@ -427,7 +427,7 @@ def bop_ar_score(rs, ts, succ, rs_gt, ts_gt, model_points, k_mat, image_width):
 # The port's step, timed and counted
 # ---------------------------------------------------------------------------
 
-COUNTED = ("buddies", "ransac_score", "refine")
+COUNTED = ("buddies", "ransac_dlt", "ransac_score", "refine")
 
 
 def _sync(device):

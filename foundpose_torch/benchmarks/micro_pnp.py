@@ -10,9 +10,10 @@ uniform in +-0.05 m, 80% valid, query ids in [0, 900), f 600, c 209.5):
 
   hypothesis_sampling   pose/pnp.sample_counts (each draw's valid point)
   sampling+dlt          the above, then pose/pnp._dlt_pose_many
-  ransac_no_lm          pose/pnp.ransac_pnp without LM
-  ransac_full(+lm)      pose/pnp.ransac_pnp with 10 LM steps (kernel 2 scores,
-                        csrc/refine.cu takes the LM)
+  ransac_no_lm          pose/pnp.ransac_pnp without LM (csrc/hypotheses.cu
+                        samples and solves, kernel 2 scores)
+  ransac_full(+lm)      pose/pnp.ransac_pnp with 10 LM steps (csrc/refine.cu
+                        takes the LM)
   estimate_score(best)  pipeline/inference.estimate_score on B sets
 
 Both RANSAC substages run with lo_iters=0, as the JAX script pins them.

@@ -33,30 +33,21 @@
 // the valid points, the 40 distinct sums of the 64 DLT features, the trace
 // normalisation and +1e-9 I, the lane-major Cholesky with its pivot floored
 // at 1e-30, four inverse iterations from cos(0.7 i + 0.3), the sign and
-// cube-root scale, eight Newton polar steps; the closed-form Jacobian,
+// cube-root scale, eight Newton polar steps (csrc/dlt.cuh, shared with
+// RANSAC's minimal solves in csrc/hypotheses.cu); the closed-form Jacobian,
 // Rodrigues and the left-multiplied update, the accept on new_cost < cost
 // and lambda x0.3 / x3 clamped to [1e-9, 1e6]. Clamps keep NaN as torch's
 // do, and masked terms are multiplied by their 0/1 weight, not skipped, so
 // a non-finite padding entry poisons a sum as it does in the twin. Only the
 // order of the sums differs, and the compiler may contract products and
 // sums into FMAs.
-#include "common.cuh"
+#include "dlt.cuh"
 
 namespace {
 
 constexpr int RTHREADS = 128;
 constexpr int RWARPS = RTHREADS / 32;
-constexpr int DLT_SUMS = 40;  // the 10 distinct products of (x, y, z, 1) x {1, u, v, u^2 + v^2}
 constexpr int LM_SUMS = 28;   // cost, J^T J (21, lower triangle), J^T r (6)
-constexpr float SQRT3 = 1.7320508075688772f;
-
-// torch.clamp_min: NaN stays NaN (fmaxf would drop it).
-__device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
-
-// Index of the product x_i x_j (i <= j) among the 10 distinct ones.
-__host__ __device__ constexpr int pair_index(int i, int j) {
-  return i <= j ? i * 4 - i * (i - 1) / 2 + (j - i) : j * 4 - j * (j - 1) / 2 + (i - j);
-}
 
 // Index of J^T J's entry (i, j), i >= j, in the 21 lower-triangle sums.
 __host__ __device__ constexpr int tri_index(int i, int j) { return i * (i + 1) / 2 + j; }
@@ -64,7 +55,7 @@ __host__ __device__ constexpr int tri_index(int i, int j) { return i * (i + 1) /
 // Block-wide sums of acc[0..K): each warp folds by shuffles, thread 0 then
 // adds the warps' partials in order; only thread 0's `out` is set.
 template <int K>
-__device__ __forceinline__ void block_sums(const float (&acc)[K], float (*red)[DLT_SUMS],
+__device__ __forceinline__ void block_sums(const float (&acc)[K], float (*red)[fp::DLT_SUMS],
                                            float (&out)[K]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -133,144 +124,6 @@ __device__ __forceinline__ void lm_point(const float* pose, float x, float y, fl
   }
 }
 
-// pnp._cholesky_lane_major in place on the lower triangle of a.
-template <int n>
-__device__ __forceinline__ void cholesky(float (&a)[n][n]) {
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    float s[n];
-#pragma unroll
-    for (int i = j; i < n; ++i) {
-      float dot = 0.f;
-#pragma unroll
-      for (int k = 0; k < j; ++k) dot += a[i][k] * a[j][k];
-      s[i] = a[i][j] - dot;
-    }
-    const float d = sqrtf(clamp_min(s[j], 1e-30f));
-#pragma unroll
-    for (int i = j; i < n; ++i) a[i][j] = s[i] / d;
-  }
-}
-
-// pnp._cho_solve_lane_major: (L L^T) x = b.
-template <int n>
-__device__ __forceinline__ void cho_solve(const float (&l)[n][n], const float (&b)[n],
-                                          float (&x)[n]) {
-  float y[n];
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float dot = 0.f;
-#pragma unroll
-    for (int k = 0; k < i; ++k) dot += l[i][k] * y[k];
-    y[i] = (b[i] - dot) / l[i][i];
-  }
-#pragma unroll
-  for (int i = n - 1; i >= 0; --i) {
-    float dot = 0.f;
-#pragma unroll
-    for (int k = i + 1; k < n; ++k) dot += l[k][i] * x[k];
-    x[i] = (y[i] - dot) / l[i][i];
-  }
-}
-
-// pnp._polar_rotation_lane_major: the Newton polar iteration, 8 steps.
-__device__ __forceinline__ void polar_rotation(float (&m)[9]) {
-  float nrm = 0.f;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) nrm += m[i] * m[i];
-  const float sc = SQRT3 / clamp_min(sqrtf(nrm), 1e-30f);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) m[i] *= sc;
-#pragma unroll
-  for (int it = 0; it < 8; ++it) {
-    const float a = m[0], b = m[1], c = m[2], d = m[3], e = m[4], f = m[5], g = m[6], h = m[7],
-                i = m[8];
-    const float co_a = e * i - f * h, co_b = -(d * i - f * g), co_c = d * h - e * g;
-    const float det = a * co_a + b * co_b + c * co_c;
-    const float inv_det = 1.f / (fabsf(det) < 1e-30f ? 1e-30f : det);
-    // The inverse is adj * inv_det; x + inv^T takes its transpose.
-    const float inv_t[9] = {co_a, co_b, co_c,
-                            -(b * i - c * h), a * i - c * g, -(a * h - b * g),
-                            b * f - c * e, -(a * f - c * d), a * e - b * d};
-#pragma unroll
-    for (int k = 0; k < 9; ++k) m[k] = 0.5f * (m[k] + inv_t[k] * inv_det);
-  }
-}
-
-// pnp._dlt_pose_many at H = 1 from the 40 weighted feature sums, with the
-// Hartley statistics mu (3) and scale hs. Writes the pose (12 floats).
-__device__ void dlt_solve(const float (&sums)[DLT_SUMS], const float* mu, float hs,
-                          float* pose) {
-  // Blocks of the normal matrix: S (sums 0-9), Su (10-19), Sv (20-29), Sw (30-39).
-  const float trace = 2.f * (sums[pair_index(0, 0)] + sums[pair_index(1, 1)] +
-                             sums[pair_index(2, 2)] + sums[pair_index(3, 3)]) +
-                      sums[30 + pair_index(0, 0)] + sums[30 + pair_index(1, 1)] +
-                      sums[30 + pair_index(2, 2)] + sums[30 + pair_index(3, 3)];
-  const float tr = clamp_min(trace, 1e-30f);
-  float a[12][12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      const int rb = i / 4, cb = j / 4, p = pair_index(i % 4, j % 4);
-      float v;
-      if (rb == cb) v = sums[(rb == 2 ? 30 : 0) + p];  // S, S, Sw
-      else if (rb == 1) v = 0.f;                       // the zero block
-      else v = -sums[(cb == 0 ? 10 : 20) + p];         // -Su, -Sv
-      a[i][j] = v / tr + (i == j ? 1e-9f : 0.f);
-    }
-  }
-  cholesky<12>(a);
-  float vec[12];
-  float nrm = 0.f;
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    vec[i] = cosf(static_cast<float>(i) * 0.7f + 0.3f);
-    nrm += vec[i] * vec[i];
-  }
-  nrm = sqrtf(nrm);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) vec[i] /= nrm;
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    float w[12];
-    cho_solve<12>(a, vec, w);
-    float ww = 0.f;
-#pragma unroll
-    for (int i = 0; i < 12; ++i) ww += w[i] * w[i];
-    const float den = clamp_min(sqrtf(ww), 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) vec[i] = w[i] / den;
-  }
-  // vec = [R | t] row by row, up to scale and sign.
-  const float* p = vec;
-  const float det = p[0] * (p[5] * p[10] - p[6] * p[9]) - p[1] * (p[4] * p[10] - p[6] * p[8]) +
-                    p[2] * (p[4] * p[9] - p[5] * p[8]);
-  const float sign = det < 0.f ? -1.f : 1.f;
-  const float scale = sign / powf(fabsf(det) + 1e-30f, 1.f / 3.f);
-  float rot[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) rot[3 * i + j] = p[4 * i + j] * scale;
-  }
-  polar_rotation(rot);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float r_mu = rot[3 * i] * mu[0] + rot[3 * i + 1] * mu[1] + rot[3 * i + 2] * mu[2];
-    pose[9 + i] = p[4 * i + 3] * scale / hs - r_mu;
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) pose[k] = rot[k];
-}
-
-__device__ __forceinline__ bool all_finite(const float* pose) {
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < 12; ++k) ok = ok && isfinite(pose[k]);
-  return ok;
-}
-
 // geometry.rodrigues, then the left-multiplied update of pnp.refine_pose_lm:
 // R' = dR R, t' = dR t + dt, with (dw, dt) = -delta.
 __device__ __forceinline__ void lm_update(const float* pose, const float (&delta)[6],
@@ -316,9 +169,9 @@ __device__ __forceinline__ void lm_step(const float* pose, const float (&sums)[L
     for (int j = 0; j <= i; ++j) a[i][j] = sums[1 + tri_index(i, j)] + (i == j ? lam : 0.f);
     b[i] = sums[22 + i];
   }
-  cholesky<6>(a);
+  fp::cholesky<6>(a);
   float delta[6];
-  cho_solve<6>(a, b, delta);
+  fp::cho_solve<6>(a, b, delta);
   lm_update(pose, delta, out);
 }
 
@@ -330,7 +183,7 @@ __global__ void __launch_bounds__(RTHREADS)
                   const float* __restrict__ cnt_in, float thr2, float thr2_wide, int lo_iters,
                   int lm_iters, float* __restrict__ r_out, float* __restrict__ t_out,
                   unsigned char* __restrict__ inl_out, float* __restrict__ cnt_out, int N) {
-  __shared__ float red[RWARPS][DLT_SUMS];
+  __shared__ float red[RWARPS][fp::DLT_SUMS];
   __shared__ float pose[12];  // the current best pose (LO), read by every thread
   __shared__ float cand[12];  // a refit or an LM candidate
   __shared__ float hart[4];   // mu, then the Hartley scale
@@ -366,7 +219,7 @@ __global__ void __launch_bounds__(RTHREADS)
     block_sums<4>(acc, red, tot);
     float cnt = 1.f;  // thread 0's
     if (tid == 0) {
-      cnt = clamp_min(tot[3], 1.f);
+      cnt = fp::clamp_min(tot[3], 1.f);
       for (int k = 0; k < 3; ++k) hart[k] = tot[k] / cnt;
     }
     __syncthreads();
@@ -378,16 +231,16 @@ __global__ void __launch_bounds__(RTHREADS)
     }
     float spread[1];
     block_sums<1>(sp, red, spread);
-    if (tid == 0) hart[3] = SQRT3 / clamp_min(spread[0] / cnt, 1e-12f);
+    if (tid == 0) hart[3] = fp::SQRT3 / fp::clamp_min(spread[0] / cnt, 1e-12f);
     __syncthreads();
     const float hs = hart[3];
 
     for (int li = 0; li < lo_iters; ++li) {
       // The refit on the inliers at the widened threshold.
       const float fit_thr2 = li == 0 ? thr2_wide : thr2;
-      float f[DLT_SUMS];
+      float f[fp::DLT_SUMS];
 #pragma unroll
-      for (int k = 0; k < DLT_SUMS; ++k) f[k] = 0.f;
+      for (int k = 0; k < fp::DLT_SUMS; ++k) f[k] = 0.f;
       for (int n = tid; n < N; n += RTHREADS) {
         const float x = p3[3 * n], y = p3[3 * n + 1], z = p3[3 * n + 2];
         const float qx = p2[2 * n], qy = p2[2 * n + 1];
@@ -400,7 +253,7 @@ __global__ void __launch_bounds__(RTHREADS)
 #pragma unroll
           for (int j = i; j < 4; ++j) {
             const float o = xh[i] * xh[j];
-            const int p = pair_index(i, j);
+            const int p = fp::pair_index(i, j);
             f[p] += c * o;
             f[10 + p] += c * (o * u);
             f[20 + p] += c * (o * v);
@@ -408,13 +261,13 @@ __global__ void __launch_bounds__(RTHREADS)
           }
         }
       }
-      float sums[DLT_SUMS];
-      block_sums<DLT_SUMS>(f, red, sums);
+      float sums[fp::DLT_SUMS];
+      block_sums<fp::DLT_SUMS>(f, red, sums);
       if (tid == 0) {
         const float mu[3] = {mx, my, mz};
         float lo[12];
-        dlt_solve(sums, mu, hs, lo);
-        go = all_finite(lo);
+        fp::dlt_solve(sums, mu, hs, lo);
+        go = fp::all_finite(lo);
 #pragma unroll
         for (int k = 0; k < 12; ++k) cand[k] = lo[k];
       }
@@ -492,7 +345,7 @@ __global__ void __launch_bounds__(RTHREADS)
   if (tid == 0) {
     // refine_pose_lm_guarded: keep the LM's input pose where the result is
     // not finite.
-    const bool ok = all_finite(cur);
+    const bool ok = fp::all_finite(cur);
 #pragma unroll
     for (int k = 0; k < 9; ++k) r_out[9 * s + k] = ok ? cur[k] : pose[k];
 #pragma unroll

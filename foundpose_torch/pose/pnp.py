@@ -2,11 +2,11 @@
 (counterpart of foundpose_tpu/pose/pnp.py).
 
 Every function takes a leading batch of correspondence sets [S, ...] where
-the JAX package vmaps one set at a time. Hypotheses are scored by
-`score_hypotheses`, and the winners' LO refits and LM steps run in
-`refine_lo_lm`: each a hand-written CUDA kernel (csrc/score.cu,
-csrc/refine.cu) on a GPU and its plain twin on a CPU, chosen by the
-tensors' device.
+the JAX package vmaps one set at a time. Hypotheses are sampled and solved
+by `dlt_hypotheses`, scored by `score_hypotheses`, and the winners' LO
+refits and LM steps run in `refine_lo_lm`: each a hand-written CUDA kernel
+(csrc/hypotheses.cu, csrc/score.cu, csrc/refine.cu) on a GPU and its plain
+twin on a CPU, chosen by the tensors' device.
 
 The minimal solves keep the JAX package's lane-major unrolled Cholesky (its
 floor at 1e-30 turns degenerate minimal sets into finite garbage that the
@@ -283,6 +283,75 @@ def sample_counts(valid: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Hypothesis kernel: the samples and their minimal solves
+# ---------------------------------------------------------------------------
+
+# csrc/hypotheses.cu keeps a set's rank-to-point map in shared memory, 4
+# bytes a point in at most 224 KB.
+DLT_MAX_POINTS = 224 * 1024 // 4
+
+
+def dlt_hypotheses_plain(pts2d, pts3d, valid, k_f, k_c, draws):
+    """`sample_counts`, `_dlt_pose_many` and the finite fix (R = I,
+    t = (0, 0, 1) wherever R or t is not finite) in plain PyTorch."""
+    rays = (pts2d - k_c[:, None]) / k_f[:, None]
+    counts = sample_counts(valid, draws)
+    rs, ts = _dlt_pose_many(pts3d, rays, valid.float(), counts)
+    finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
+    eye = torch.eye(3, device=rs.device)
+    rs = torch.where(finite[..., None, None], rs, eye)
+    ts = torch.where(finite[..., None], ts, eye[2])
+    return rs, ts
+
+
+def dlt_hypotheses(pts2d, pts3d, valid, k_f, k_c, draws):
+    """RANSAC's hypotheses on S correspondence sets: each of the H minimal
+    samples that draws [S, H, 6] pick (each raw draw taken modulo the set's
+    valid count picks the valid point of that rank) solved by the DLT,
+    with the finite fix: `dlt_hypotheses_plain` in one launch.
+
+    pts2d [S, N, 2] pixels, pts3d [S, N, 3], k_f / k_c [S, 2] f32; valid
+    [S, N] bool; draws [S, H, 6] int64 -> (R [S, H, 3, 3], t [S, H, 3]).
+    CPU tensors take the plain twin; CUDA tensors one launch of
+    csrc/hypotheses.cu, which does the twin's arithmetic with its sums in
+    another order, or a ValueError for a wrong device, dtype or shape, or
+    more than DLT_MAX_POINTS points a set.
+    """
+    if pts2d.device.type == "cpu":
+        return dlt_hypotheses_plain(pts2d, pts3d, valid, k_f, k_c, draws)
+    if pts2d.dim() != 3 or pts2d.shape[-1] != 2 or draws.dim() != 3:
+        raise ValueError("dlt_hypotheses: pts2d must be [S, N, 2] and draws [S, H, 6]")
+    s, n, _ = pts2d.shape
+    h = draws.shape[1]
+    expected = {"pts3d": (pts3d, (s, n, 3)), "valid": (valid, (s, n)), "k_f": (k_f, (s, 2)),
+                "k_c": (k_c, (s, 2)), "draws": (draws, (s, h, 6))}
+    for name, (x, shape) in expected.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"dlt_hypotheses: {name} is {tuple(x.shape)}, expected {shape}")
+    if (any(x.dtype != torch.float32 for x in (pts2d, pts3d, k_f, k_c))
+            or valid.dtype != torch.bool or draws.dtype != torch.int64):
+        raise ValueError("dlt_hypotheses: points and cameras must be float32, valid bool and "
+                         "draws int64")
+    if s < 1 or h < 1 or not 1 <= n <= DLT_MAX_POINTS:
+        raise ValueError(f"dlt_hypotheses: needs S, H >= 1 and 1 <= N <= {DLT_MAX_POINTS}")
+    pts2d, pts3d, valid, k_f, k_c, draws = (
+        x.contiguous() for x in (pts2d, pts3d, valid, k_f, k_c, draws))
+    dev = _kernels.require_cuda("dlt_hypotheses", pts2d, pts3d, valid, k_f, k_c, draws)
+    rs = torch.empty(s, h, 3, 3, dtype=torch.float32, device=dev)
+    ts = torch.empty(s, h, 3, dtype=torch.float32, device=dev)
+    rc = _kernels.library().fp_dlt_hypotheses(
+        pts2d.data_ptr(), pts3d.data_ptr(), valid.data_ptr(), k_f.data_ptr(), k_c.data_ptr(),
+        draws.data_ptr(), rs.data_ptr(), ts.data_ptr(), s, n, h, _kernels.stream_ptr(dev),
+    )
+    _kernels.check(rc, "fp_dlt_hypotheses")
+    dlt_hypotheses.launches += 1
+    return rs, ts
+
+
+dlt_hypotheses.launches = 0
+
+
 def ransac_pnp(
     coord_2d: torch.Tensor,
     coord_3d: torch.Tensor,
@@ -304,9 +373,10 @@ def ransac_pnp(
     taken modulo the set's valid count and picks the valid point of that
     rank. quality = inlier count; success needs >= 6 inliers.
 
-    Spans (utils/profiling): "dlt" (the samples, the minimal solves and
-    the finite fix), "score" (`score_hypotheses`, the best hypothesis and
-    its inliers) and, with LO or LM on, "lo_lm" (`refine_lo_lm`).
+    Spans (utils/profiling): "dlt" (`dlt_hypotheses`: the samples, the
+    minimal solves and the finite fix), "score" (`score_hypotheses`, the
+    best hypothesis and its inliers) and, with LO or LM on, "lo_lm"
+    (`refine_lo_lm`).
     """
     s_, n, _ = coord_2d.shape
     h = num_hypotheses
@@ -315,17 +385,12 @@ def ransac_pnp(
     validf = valid.float()
     k_f = k_f.float()
     k_c = k_c.float()
-    rays = (pts2d - k_c[:, None]) / k_f[:, None]
 
     if draws is None:
         draws = torch.randint(0, n, (s_, h, 6), generator=generator, device=pts2d.device)
     with profiling.span("dlt"):
-        counts = sample_counts(valid, draws)
-        rs, ts = _dlt_pose_many(pts3d, rays, validf, counts)
-        finite = torch.isfinite(rs).all(-1).all(-1) & torch.isfinite(ts).all(-1)
-        eye = torch.eye(3, device=rs.device)
-        rs = torch.where(finite[..., None, None], rs, eye)
-        ts = torch.where(finite[..., None], ts, eye[2])
+        rs, ts = dlt_hypotheses(pts2d, pts3d, valid, k_f, k_c,
+                                draws.to(pts2d.device, torch.int64))
 
     with profiling.span("score"):
         hyp_counts = score_hypotheses(pts2d, pts3d, validf, rs, ts, k_f, k_c, inlier_thresh)

@@ -53,8 +53,8 @@ def kernel_counters() -> Dict[str, Callable]:
 
     return {
         "vit_block": fused_vit_block, "buddies": cycle_distances,
-        "ransac_score": pnp.score_hypotheses, "attention": fused_attention_bhtd,
-        "refine": pnp.refine_lo_lm,
+        "ransac_dlt": pnp.dlt_hypotheses, "ransac_score": pnp.score_hypotheses,
+        "attention": fused_attention_bhtd, "refine": pnp.refine_lo_lm,
     }
 
 

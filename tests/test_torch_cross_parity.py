@@ -241,7 +241,8 @@ def test_run_parity_matches_jax(jax_parity):
         assert got[f"ar_delta_{leg}"] == ref[f"ar_delta_{leg}"], leg
         assert got[f"both_succeeded_{leg}"] == ref[f"both_succeeded_{leg}"], leg
         # CPU: the twins, which count no launch
-        assert got[f"launches_{leg}"] == {"buddies": 0, "ransac_score": 0, "refine": 0}
+        assert got[f"launches_{leg}"] == {"buddies": 0, "ransac_dlt": 0, "ransac_score": 0,
+                                             "refine": 0}
     assert got["idf_max_delta"] < 1e-5 and got["template_desc_cosine_min"] > 0.999
     assert not tp.ar_gate_failed(got)
     assert set(got) >= {k.replace("_jax_", "_port_") for k in ref}
@@ -305,7 +306,8 @@ def test_sweep_cell_matches_jax(sweep, cell):
     got = harness.cell_ar(sw, overrides, "cpu", draws=draws, full_draws=full)
     assert ar_j >= 0.5
     assert got["ar"] == ar_j
-    assert got["launches"] == {"buddies": 0, "ransac_score": 0, "refine": 0} and got["wall_ms"] > 0
+    assert got["launches"] == {"buddies": 0, "ransac_dlt": 0, "ransac_score": 0,
+                               "refine": 0} and got["wall_ms"] > 0
 
 
 # --------------------------------------------------------------------------

@@ -357,15 +357,74 @@ def test_score_kernel_matches_twin(dev, s, n, h):
 
 
 def test_ransac_pnp_launches_the_scorer_once(dev):
-    """One scorer launch a ransac_pnp call, whatever the number of sets."""
+    """One launch of the hypotheses kernel and one of the scorer a
+    ransac_pnp call, whatever the number of sets."""
     ops = score_problem(6, 120, 50)
     args = [ops[k].to(dev) for k in ("pts2d", "pts3d")]
     valid = ops["validf"].to(dev) > 0
-    before = pnp.score_hypotheses.launches
+    before = pnp.score_hypotheses.launches, pnp.dlt_hypotheses.launches
     res = pnp.ransac_pnp(*args, valid, ops["k_f"].to(dev), ops["k_c"].to(dev),
                          num_hypotheses=50, generator=torch.Generator(device=dev).manual_seed(0))
-    assert pnp.score_hypotheses.launches == before + 1
+    assert (pnp.score_hypotheses.launches, pnp.dlt_hypotheses.launches) == (
+        before[0] + 1, before[1] + 1)
     assert bool(res.success[1:].all()) and not bool(res.success[0])
+
+
+@pytest.mark.parametrize("s,n,h", [(640, 300, 200), (80, 300, 200), (7, 37, 400)])
+def test_dlt_hypotheses_kernel_matches_twin(dev, s, n, h):
+    """dlt_hypotheses' kernel against its float32 twin and the twin in
+    float64, one launch a call, at the offline step's shape (640 sets), a
+    request's (80) and lmo_exact.json's hypotheses on few points (37).
+    The minimal DLT solves its 12x12 normal equations in float32, so most
+    samples' poses move with rounding (the float32 twin itself lies more
+    than 1e-3 from the float64 twin in R on ~10% of hypotheses) and the
+    kernel's sums run in another order: so R and t are held to the float64
+    twin within 1e-2 and 2 mm (0.4% of the 450-650 mm depths) where the
+    system is well conditioned, that is where the float32 twin lies within
+    1e-6 and 1e-3 mm of it; the kernel's median and 90th-percentile errors
+    from the float64 twin over all hypotheses of the normal sets at most
+    twice the float32 twin's (plus 1e-6 and 1e-3 mm); kernel 2's inlier
+    counts of the two outputs equal on at least 90% of those hypotheses,
+    and each set's first maximum equal, except set 1, whose four valid
+    points leave the system underdetermined (there both give finite poses
+    of at most four inliers). Set 0 (no valid point) solves zero sums, so
+    its poses are rounding noise on both sides and count nothing; sets 2
+    and 3 (a NaN in an invalid entry) give R = I, t = (0, 0, 1) on both
+    sides (tests/hypotheses_data.py)."""
+    from hypotheses_data import dlt_hypotheses_f64, hypothesis_operands
+
+    ops = hypothesis_operands(s, n, h, seed=s + h, device=dev)
+    before = pnp.dlt_hypotheses.launches
+    rs, ts = pnp.dlt_hypotheses(**ops)
+    assert pnp.dlt_hypotheses.launches == before + 1
+    r32, t32 = pnp.dlt_hypotheses_plain(**ops)
+    r64, t64 = dlt_hypotheses_f64(ops)
+
+    def err(r, t):
+        return ((r.double() - r64).abs().amax((-1, -2)).cpu(),
+                (t.double() - t64).abs().amax(-1).cpu())
+
+    fix = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    for r, t in ((rs, ts), (r32, t32)):
+        assert bool((r[2:4] == torch.eye(3, device=dev)).all()) and bool((t[2:4] == fix).all())
+    assert bool(torch.isfinite(rs).all()) and bool(torch.isfinite(ts).all())
+    (er, et), (er32, et32) = err(rs, ts), err(r32, t32)
+    well = (er32 <= 1e-6) & (et32 <= 1e-3)
+    well[:4] = False
+    assert int(well.sum()) >= 0.02 * (s - 4) * h
+    assert float(er[well].max()) < 1e-2 and float(et[well].max()) < 2.0
+    q = torch.tensor([0.5, 0.9], dtype=torch.float64)
+    for got, ref, floor in ((er, er32, 1e-6), (et, et32, 1e-3)):
+        got_q, ref_q = (torch.quantile(x[4:].flatten()[:2**24], q) for x in (got, ref))
+        assert bool((got_q <= 2 * ref_q + floor).all()), (got_q, ref_q)
+    vf = ops["valid"].float()
+    counts = [pnp.score_hypotheses(ops["pts2d"], ops["pts3d"], vf, r, t, ops["k_f"], ops["k_c"],
+                                   10.0).cpu() for r, t in ((rs, ts), (r32, t32))]
+    assert float((counts[0] == counts[1])[4:].float().mean()) >= 0.9
+    best = [c.max(-1).values for c in counts]
+    sets = [k for k in range(s) if k != 1]
+    assert torch.equal(best[0][sets], best[1][sets])
+    assert float(counts[0][1].max()) <= 4 and float(counts[0][0].max()) == 0
 
 
 @pytest.mark.parametrize("lo_iters,lm_iters", [(2, 10), (0, 10), (2, 0)])
@@ -543,6 +602,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             pnp.refine_lo_lm(**{**ops, **bad}, inlier_thresh=10.0, lo_iters=2, lm_iters=10)
     assert pnp.refine_lo_lm.launches == before
+    from hypotheses_data import hypothesis_operands
+
+    ops = hypothesis_operands(2, 40, 8, device=dev, special=False)
+    before = pnp.dlt_hypotheses.launches
+    for bad in (dict(draws=ops["draws"].int()), dict(valid=ops["valid"].float()),
+                dict(pts3d=ops["pts3d"][:, :39]), dict(k_c=ops["k_c"].cpu())):
+        with pytest.raises(ValueError):
+            pnp.dlt_hypotheses(**{**ops, **bad})
+    assert pnp.dlt_hypotheses.launches == before
 
 
 def _gloo_rank(rank, world, out_dir):

@@ -177,7 +177,8 @@ def test_kernel_counters_are_the_main_path_wrappers():
     from foundpose_torch.benchmarks import bench
 
     main = profiling.kernel_counters()
-    assert list(main) == ["vit_block", "buddies", "ransac_score", "attention", "refine"]
+    assert list(main) == ["vit_block", "buddies", "ransac_dlt", "ransac_score", "attention",
+                          "refine"]
     assert all(isinstance(fn.launches, int) for fn in main.values())
     assert list(bench.kernel_counters()) == list(main) + ["mm_bf16", "mm_int8"]
 
