@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.benchmarks import micro_int8 as t_probe
 from foundpose_torch.ops import attention as t_att

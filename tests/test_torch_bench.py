@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from jax.experimental.pallas import tpu as pltpu
 from test_torch_pipeline import T, jax_pipeline_draws, torch_config, torch_repre
 from test_torch_serving import BOXES, K_IMAGE, TINY_VIT, assert_same_results, crop_world

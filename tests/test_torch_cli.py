@@ -15,6 +15,7 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.data.ply import Mesh, save_ply
 from foundpose_torch.parallel import host_shard as t_shard

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_infer import one_torch_thread  # noqa: F401 (an autouse fixture)
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_torch_pipeline import jax_pipeline_draws
 
 import chip_smoke

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_bop_data import mini_bop  # noqa: F401  (the fixture)
 
 from foundpose_torch.data import bop as t_bop

@@ -22,9 +22,9 @@ import shutil
 import numpy as np
 import pytest
 import torch
-from test_torch_infer import (  # noqa: F401 (one_torch_thread: an autouse fixture)
-    assert_decisions_match, assert_submission_matches, build_split,
-    jax_draws, one_torch_thread, run_both)
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
+from test_torch_infer import (assert_decisions_match, assert_submission_matches, build_split,
+                              jax_draws, run_both)
 
 from foundpose_torch.pipeline import eval_ar as t_eval_ar
 from foundpose_torch.pipeline import infer as t_infer

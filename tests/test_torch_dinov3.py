@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch import models
 from foundpose_torch.benchmarks import reference_dinov3 as ref

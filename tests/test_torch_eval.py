@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from scipy.spatial.transform import Rotation
 from test_bop_ar import make_multi_instance_world, make_world, oracle_evaluate
 from test_torch_pipeline import T, jax_pipeline_draws, torch_camera, torch_config, torch_repre

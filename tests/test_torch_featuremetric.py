@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from scipy.spatial.transform import Rotation
 from test_featuremetric import smooth_feature_map
 from test_pipeline import make_synthetic_world, render_synthetic_query

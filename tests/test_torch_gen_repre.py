@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_integration import OBJ_ID, TINY_EXTRACTOR, build_synthetic_bop, make_textured_icosahedron
 
 from foundpose_torch.models import dinov2 as t_dinov2

@@ -7,6 +7,7 @@ card (tests/test_torch_cuda.py)."""
 
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch import _kernels
 from foundpose_torch.pose import pnp

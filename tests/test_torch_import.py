@@ -1,17 +1,21 @@
 """The PyTorch port stands alone: no JAX import anywhere in its package;
 PIL, tabulate and cv2 imported only where an image is read or drawn, a
 table written or a reference replica solves, and sklearn and transformers
-nowhere, so every module imports without them; and chip_smoke.py refuses
-to run without a GPU."""
+nowhere, so every module imports without them; chip_smoke.py refuses to
+run without a GPU; and torch in a test process keeps to its share of the
+cores (tests/torch_cpu.py)."""
 
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 
 import pytest
+import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "foundpose_torch")
@@ -32,25 +36,51 @@ def test_no_jax_import_statements():
     assert not offenders, offenders
 
 
-def test_every_module_imports_with_jax_blocked():
-    code = (
-        "import sys, pkgutil, importlib\n"
-        f"for name in {BLOCKED!r}:\n"
-        "    sys.modules[name] = None\n"
-        "import foundpose_torch\n"
-        "names = [m.name for m in pkgutil.walk_packages(foundpose_torch.__path__, 'foundpose_torch.')]\n"
-        "for n in names:\n"
-        "    importlib.import_module(n)\n"
-        "print(len(names))\n"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
-    )
-    assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 66
+# One interpreter blocks BLOCKED, imports torch and numpy once, forks a child
+# per module of argv[1] that imports it with no other foundpose_torch module
+# loaded, then imports every module itself; it prints one JSON object: each
+# module's traceback ("" when it imported), and the count of all modules or
+# the traceback that stopped them.
+_IMPORT_CHECK = f"""
+import importlib, json, os, pkgutil, sys, traceback
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import numpy, torch
 
+def alone(module):
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            importlib.import_module(module)
+            msg = ""
+        except BaseException:
+            msg = traceback.format_exc()
+        with os.fdopen(w, "w") as f:
+            f.write(msg)
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        msg = f.read()
+    status = os.waitpid(pid, 0)[1]
+    return msg or ("" if status == 0 else f"the child exited with status {{status}}")
 
-@pytest.mark.parametrize("module", [
+each = {{m: alone(m) for m in json.loads(sys.argv[1])}}
+try:
+    import foundpose_torch
+    names = [m.name for m in pkgutil.walk_packages(foundpose_torch.__path__, "foundpose_torch.")]
+    for n in names:
+        importlib.import_module(n)
+    every = len(names)
+except BaseException:
+    every = traceback.format_exc()
+print(json.dumps({{"each": each, "all": every}}))
+"""
+# Seconds the import check's interpreter may take, its children included.
+IMPORT_DEADLINE = 600
+
+SERVING_MODULES = [
     "foundpose_torch.cameras", "foundpose_torch.engine", "foundpose_torch.ops.warp",
     "foundpose_torch.ops.attention", "foundpose_torch.pipeline.multi_object",
     "foundpose_torch.benchmarks.micro_int8",
@@ -81,23 +111,47 @@ def test_every_module_imports_with_jax_blocked():
     "foundpose_torch.benchmarks.select_iter_sweep", "foundpose_torch.benchmarks.hf_dinov2",
     "foundpose_torch.benchmarks.host_standins", "foundpose_torch.benchmarks.reference_baseline",
     "foundpose_torch.benchmarks.reference_offline_baseline",
-])
-def test_serving_modules_import_with_jax_blocked(module):
+]
+
+
+@pytest.fixture(scope="module")
+def import_check():
+    """The import check's result, from one fresh interpreter (never a fork of
+    this process, which holds JAX's threads); killed with its children, and
+    the tests failed, past IMPORT_DEADLINE."""
+    proc = subprocess.Popen([sys.executable, "-c", _IMPORT_CHECK, json.dumps(SERVING_MODULES)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=IMPORT_DEADLINE)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"the import check did not finish in {IMPORT_DEADLINE} s")
+    assert proc.returncode == 0, err
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_every_module_imports_with_jax_blocked(import_check):
+    assert isinstance(import_check["all"], int), import_check["all"]
+    assert import_check["all"] >= 66
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_import_with_jax_blocked(import_check, module):
     """Each module of the serving, refinement, evaluation, CLI, builder,
     multi-device, ViT-G, bench and measurement slices, of the
     cross-parity oracle and the solve sweeps, and of the reference
     replicas, imports on its own with jax, flax, foundpose_tpu, PIL,
     tabulate, cv2, sklearn and transformers blocked."""
-    code = (
-        "import sys, importlib\n"
-        f"for name in {BLOCKED!r}:\n"
-        "    sys.modules[name] = None\n"
-        f"importlib.import_module({module!r})\n"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
-    )
-    assert proc.returncode == 0, proc.stderr
+    assert import_check["each"][module] == "", import_check["each"][module]
+
+
+def test_torch_threads_follow_the_worker_share():
+    """torch in this test process runs on its share of the cores: all of
+    them alone, cpu_count // workers (at least one) in an xdist worker."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, os.cpu_count() // workers)
 
 
 @pytest.mark.parametrize("isolated", [False, True])
@@ -133,8 +187,6 @@ def test_gen_repre_defaults_to_the_card_and_never_falls_back():
     for the card on a machine without CUDA, the builder raises."""
     from foundpose_torch.pipeline import gen_repre
 
-    import torch
-
     with open(os.path.join(ROOT, "configs", "gen_repre", "lmo.json")) as f:
         opts = gen_repre.GenRepreOpts(**json.load(f)["gen_repre_opts"])
     assert opts.device == "cuda"
@@ -147,8 +199,6 @@ def test_gen_repre_defaults_to_the_card_and_never_falls_back():
 
 def test_inference_config_from_lmo_json():
     from foundpose_torch.pipeline import inference
-
-    import torch
 
     with open(os.path.join(ROOT, "configs", "infer", "lmo.json")) as f:
         opts = json.load(f)
@@ -170,8 +220,6 @@ def test_lmo_exact_json_resolves_to_the_unfused_f32_path():
     """configs/infer/lmo_exact.json: unfused ViT-S/14-reg at full width,
     f32, erf GELU; exact top-k, 400 RANSAC hypotheses."""
     from foundpose_torch.pipeline import inference
-
-    import torch
 
     with open(os.path.join(ROOT, "configs", "infer", "lmo_exact.json")) as f:
         opts = json.load(f)

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from PIL import Image
 from test_torch_pipeline import jax_pipeline_draws
 
@@ -58,18 +59,6 @@ BOXES = {
 # Poses: R within 1e-4; t within 1e-4 mm (the split is in metres: the
 # templates' points lie 0.4-0.6 m in front of their crop cameras).
 R_ATOL, T_ATOL = 1e-4, 1e-7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """torch on one thread in the module (autouse; test_torch_datasets and
-    test_torch_micro import it): the tier-1 run puts several test processes
-    on the machine's cores, and torch's thread pool at full width in each
-    spins against the others (a 5 s test took 4 minutes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rle(mask):

@@ -14,9 +14,9 @@ import sys
 
 import numpy as np
 import pytest
-from test_torch_parallel import read_ranks
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
+from test_torch_parallel import read_ranks, run_ranks
 
-from foundpose_torch.parallel import launch
 from foundpose_torch.pipeline import infer as t_infer
 
 MODES = ("single", "multi")
@@ -55,7 +55,7 @@ def cli(tmp_path_factory):
         opts = t_infer.InferOpts(**fields, device="cpu",
                                  output_dir=os.path.join(root, f"single_{mode}"))
         counts[mode] = (t_infer.infer_multi_object if mode == "multi" else t_infer.infer)(opts)
-    launch.run(_cli_rank, 2, fields, root)
+    run_ranks(_cli_rank, 2, fields, root)
     return root, fields, counts, read_ranks(root, 2)
 
 

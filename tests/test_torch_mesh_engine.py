@@ -13,10 +13,10 @@ import sys
 
 import numpy as np
 import pytest
-from test_torch_parallel import read_ranks
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
+from test_torch_parallel import read_ranks, run_ranks
 
 from foundpose_torch import engine as t_engine
-from foundpose_torch.parallel import launch
 from foundpose_torch.pipeline import infer as t_infer
 
 
@@ -67,7 +67,7 @@ def engines(tmp_path_factory):
     ref = engine_calls(single, p["image"], p["boxes"], p["masks"], p["K"])
     with open(d / "inputs.pkl", "wb") as f:
         pickle.dump(p, f)
-    launch.run(_engine_rank, 4, str(d / "inputs.pkl"), str(d))
+    run_ranks(_engine_rank, 4, str(d / "inputs.pkl"), str(d))
     return ref, read_ranks(d, 4)
 
 

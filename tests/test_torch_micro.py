@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_torch_bench import short_timing  # noqa: F401 (a fixture)
-from test_torch_infer import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_pose import buddies_inputs, jax_draws, pnp_problem
 
 from foundpose_torch.benchmarks import (bench, builder_full_scale, cli_throughput, micro_buddies,

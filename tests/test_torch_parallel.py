@@ -16,14 +16,17 @@ features keep each crop's retrieval scores well apart.
 
 import dataclasses
 import datetime
+import multiprocessing
 import os
 import pickle
 import sys
+import threading
 import time
 
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.models import dinov2 as t_dinov2
 from foundpose_torch.parallel import launch
@@ -186,6 +189,34 @@ def _rank(rank, world, in_path, out_dir):
         pickle.dump(res, f)
 
 
+# Seconds one launch of ranks may take. launch.run bounds each collective,
+# not a rank stuck outside one, and waits for every rank.
+RANKS_DEADLINE = 600
+
+
+def run_ranks(fn, world, *args, **kwargs):
+    """launch.run(fn, world, *args, **kwargs), its exception re-raised; past
+    RANKS_DEADLINE the ranks are killed and the test fails."""
+    failed = []
+
+    def launch_ranks():
+        try:
+            launch.run(fn, world, *args, **kwargs)
+        except BaseException as e:
+            failed.append(e)
+
+    thread = threading.Thread(target=launch_ranks, daemon=True)
+    thread.start()
+    thread.join(RANKS_DEADLINE)
+    if thread.is_alive():
+        for p in multiprocessing.active_children():
+            p.kill()
+        thread.join(60)
+        pytest.fail(f"{world} ranks of {fn.__name__} did not finish in {RANKS_DEADLINE} s")
+    if failed:
+        raise failed[0]
+
+
 def read_ranks(d, world):
     """The results every rank pickled as rank{r}.pkl under `d`, by rank."""
     out = []
@@ -210,7 +241,7 @@ def ranks(world, tmp_path_factory):
     inputs = dict(world["port"], draws=world["draws"], feats=feats, valid=valid)
     with open(d / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
-    launch.run(_rank, WORLD, str(d / "inputs.pkl"), str(d))
+    run_ranks(_rank, WORLD, str(d / "inputs.pkl"), str(d))
     return read_ranks(d, WORLD), inputs
 
 
@@ -440,6 +471,6 @@ def test_launch_deadline_stops_a_stuck_collective():
     gloo's own 30 minutes."""
     t0 = time.perf_counter()
     with pytest.raises(Exception, match="(?i)timed out|timeout"):
-        launch.run(_stuck_rank, 2, timeout=datetime.timedelta(seconds=3))
+        run_ranks(_stuck_rank, 2, timeout=datetime.timedelta(seconds=3))
     assert time.perf_counter() - t0 < 60
     assert launch.DEFAULT_TIMEOUT == datetime.timedelta(seconds=300)

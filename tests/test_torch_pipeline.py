@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_pipeline import make_synthetic_world, render_synthetic_query
 
 from foundpose_torch.models import dinov2 as t_dinov2

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from jax.experimental.pallas import tpu as pltpu
 from scipy.spatial.transform import Rotation
 

@@ -24,7 +24,7 @@ os.environ.setdefault("USE_TF", "0")
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
-from test_torch_infer import one_torch_thread  # noqa: E402, F401 (an autouse fixture)
+import torch_cpu  # noqa: E402, F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.benchmarks import (cross_parity, hf_dinov2, host_standins,  # noqa: E402
                                         reference_baseline, reference_offline_baseline)

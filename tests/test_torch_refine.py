@@ -9,6 +9,7 @@ import dataclasses
 
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch import _kernels
 from foundpose_torch.pipeline import inference

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_pipeline import make_synthetic_world, render_synthetic_query
 from test_torch_featuremetric import DTYPES, assert_same_refined, lmo_refine_opts
 from test_torch_pipeline import T, jax_pipeline_draws, torch_camera, torch_config, torch_repre

@@ -14,16 +14,17 @@ import pickle
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from test_torch_parallel import (
     as_numpy,
     assert_same_outputs,
     port_cameras,
     port_model,
     read_ranks,
+    run_ranks,
 )
 
 from foundpose_torch.models import dinov2 as t_dinov2
-from foundpose_torch.parallel import launch
 from foundpose_torch.parallel import mesh as mesh_mod
 from foundpose_torch.parallel import sharded_inference as t_sharded
 from foundpose_torch.parallel import tp_vit
@@ -111,7 +112,7 @@ def tp(tmp_path_factory):
     for world in MESHES:
         out = d / f"world{world}"
         out.mkdir()
-        launch.run(_rank, world, str(d / "inputs.pkl"), str(out))
+        run_ranks(_rank, world, str(d / "inputs.pkl"), str(out))
         ranks[world] = read_ranks(out, world)
     return params, images, inputs, ranks
 

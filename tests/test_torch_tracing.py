@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.engine import PoseEngine
 from foundpose_torch.models.dinov2 import DinoV2Config

@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 
 from foundpose_torch.data.ply import Mesh as TMesh
 from foundpose_torch.renderer import base as t_rbase

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401 (torch's CPU threads: this process's share)
 from jax.experimental.pallas import tpu as pltpu
 
 from foundpose_torch.models import bench_weights as t_bench
