@@ -6,7 +6,9 @@
 Phases (each prints one line and raises on failure):
   0  card: name, power limit, device count; TF32 switched off.
   1  build: compiles csrc/*.cu with nvcc (sm_90a), one process per source,
-     all started together, into foundpose_torch/_build.
+     all started together, into foundpose_torch/_build; ptxas's registers
+     and spill of every kernel, and of kernel 1's attention at heads of 64
+     and of 128 on a line of their own.
   2  kernels vs their plain PyTorch twins at their paths' shapes: the ViT
      block per layer (whole output and the residual branches alone) and
      over all layers, the buddies cycle distances, the RANSAC scorer from
@@ -35,7 +37,10 @@ Phases (each prints one line and raises on failure):
      torch.profiler (foundpose_torch/benchmarks/block_split.py), beside
      F.linear and scaled_dot_product_attention at the same shapes; a split
      of which torch.profiler lost device kernels on every try is reported
-     as not measured, never from a part.
+     as not measured, never from a part. The attention launch alone at the
+     offline cell's batch, [128, 905, 384] with 6 heads (layer 0 on the
+     16 crops repeated): its device ms under torch.profiler beside
+     scaled_dot_product_attention on the same q, k, v and its bound.
   3  main path: DINOv2 ViT-S/14-reg (calibrated random weights), an LM-O
      scale synthetic representation and configs/infer/lmo.json, serving
      batches of 420 px crops through pipeline.inference.pose_from_crops until
@@ -169,7 +174,9 @@ Phases (each prints one line and raises on failure):
      the 18 layers, as phase 2 (per-layer output and branch rel. L2, the
      key facet's feature-map cosine, the column stabilizer once, times of
      kernel, twin and the PyTorch calls of one layer's shapes, the bound
-     from utils/flops, the seven launches). (b) pose_from_crops at batch 16
+     from utils/flops, the seven launches), and the attention launch alone
+     at [128, 901, 1024] with 16 heads, as phase 2's at [128, 905, 384].
+     (b) pose_from_crops at batch 16
      on an LM-O-scale synthetic representation with PCA 1024 -> 256, as
      phase 3, and the launches from zero over one request (block 18,
      buddies 1, hypotheses 1, scorer 1, refinement 1).
@@ -281,7 +288,9 @@ Phases (each prints one line and raises on failure):
      fail the branch gate. (d) LayerNorm at 4,096, the qkv GEMM with RoPE
      and attention at heads of 128: device ms of each launch, CUDA-event
      ms of the twin's code for it and of F.layer_norm, F.linear with the
-     rotation, and scaled_dot_product_attention, each one's bound. (e)
+     rotation, and scaled_dot_product_attention on the same q, k, v, each
+     one's bound; and the attention launch alone at [32, 905, 4096] with 32
+     heads of 128, as phase 2's at [128, 905, 384]. (e)
      launches from zero over one batch of 32 (block 31, of them 31 with
      RoPE, buddies 1, hypotheses 1, scorer 1, refinement 1; the RoPE tables cached).
 
@@ -295,6 +304,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -497,7 +507,24 @@ def phase_build():
     usage = [ln.strip() for ln in _kernels.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log(1, f"built in {_kernels.build_seconds:.2f} s; ptxas: " + " | ".join(usage[:12]))
-    return {"build_seconds": _kernels.build_seconds, "ptxas": usage}
+    attention = attention_ptxas(_kernels.build_log)
+    log(1, "kernel 1's attention, ptxas (its shared memory is dynamic, set in "
+           "csrc/vit_block.cu's Attn): " + " | ".join(f"{k}: {'; '.join(v)}"
+                                                      for k, v in attention.items()))
+    return {"build_seconds": _kernels.build_seconds, "ptxas": usage, "attention_ptxas": attention}
+
+
+def attention_ptxas(build_log):
+    """ptxas's registers and spill lines of each instantiation of kernel 1's
+    attention_kernel<head dim, capped>, from the build log."""
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"vit_block_cu.*attention_kernelILi(\d+)ELb(\d)E", ln)
+            name = m and f"attention_kernel<{m[1]}, {'true' if m[2] == '1' else 'false'}>"
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
 
 
 def phase_kernels(torch, model, vit_cfg, repre, config, device):
@@ -516,6 +543,7 @@ def phase_kernels(torch, model, vit_cfg, repre, config, device):
     crops = torch.rand(b, 420, 420, 3, generator=gen, device=device)
     x0, _ = dinov2.embed_tokens(model, preprocess_crops(crops, config))
     result["vit_block"] = block_vs_twin(torch, model, vit_cfg, x0, 2)
+    result["attention_b128"] = attention_alone(torch, model, vit_cfg, x0, 2)
 
     # --- Buddies: queries drawn from a retrieved template's bank plus noise.
     tn, q = config.top_n_templates, 900
@@ -692,6 +720,49 @@ def block_vs_twin(torch, model, vit_cfg, x0, phase, split=True, rope=None, f32_c
     log(phase, "vit_block launches (device ms, torch.profiler, mean of 5 calls): " + shown
                + "; yardsticks ms: " + ", ".join(f"{k} {v:.4f}" for k, v in yard.items()))
     return res
+
+
+def attention_alone(torch, model, vit_cfg, x0, phase, batch=128):
+    """Kernel 1's attention launch alone at an offline cell's batch: layer 0
+    on x0's crops repeated to `batch`; its device ms under torch.profiler
+    (block_split.launch_split, mean of 5 block calls, or of 1 where no
+    window of 5 was kept whole; None where no window kept every kernel with
+    attention_kernel third), scaled_dot_product_attention's
+    CUDA-event ms on the same q, k, v (the twin's qkv of that layer; a
+    yardstick the port never calls) and the bound 4 B H T^2 hd over the
+    bf16 peak."""
+    from foundpose_torch.benchmarks import block_split
+    from foundpose_torch.ops import vit_block as vb
+
+    x = x0.repeat(-(-batch // x0.shape[0]), 1, 1)[:batch].contiguous()
+    b, t, d = x.shape
+    h, hd, eps = vit_cfg.num_heads, vit_cfg.head_dim, vit_cfg.layer_norm_eps
+    p0 = model.blocks[0].kernel_params(torch.bfloat16)
+    ms = None
+    for calls in (5, 1):  # a window of one call is more often kept whole
+        try:
+            split = block_split.launch_split(
+                vb.fused_vit_block, x, p0, calls=calls, seq_len=t, num_heads=h, head_dim=hd,
+                eps=eps, approx_gelu=vit_cfg.approx_gelu,
+                softmax_stabilizer=vit_cfg.softmax_stabilizer)
+        except block_split.ProfilerLostKernels:
+            continue
+        row = next(r for r in split if r["launch"] == "attention")
+        if "attention_kernel" in row["kernel"]:  # a window that dropped one kernel and kept
+            ms = row["ms"]                       # another shifts the launches' order
+            break
+    q, k, v = (a.to(x.dtype) for a in vb.plain_qkv(
+        vb.layer_norm(x, p0["norm1_scale"], p0["norm1_bias"], eps), p0, h, hd))
+    lib = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    bms, by = bound(4 * b * h * t * t * hd, nbytes(q, k, v, x), "bf16")
+    log(phase, f"attention alone at [{b}, {t}, {d}], {h} heads of {hd}: kernel "
+               + ("not measured" if ms is None else f"{ms:.4f} ms (device, torch.profiler)")
+               + f", scaled_dot_product_attention {lib:.4f} ms on the same q, k, v, bound "
+               f"{bms:.4f} ms ({by})" + ("" if ms is None else f", {100 * bms / ms:.1f}%"))
+    del q, k, v, x
+    return dict(shape=[b, t, d], heads=h, head_dim=hd, ms=ms, library_ms=lib,
+                library_is="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
+                share=None if ms is None else bms / ms)
 
 
 def buddies_vs_twin(torch, qf, qmask, grid, sel_feats, sel_mask, phase):
@@ -3161,6 +3232,7 @@ def phase_vitl(torch, device):
         x0, _ = dinov2.embed_tokens(model, inference.preprocess_crops(crops, config))
         check(x0.shape[1] == 901, f"{x0.shape[1]} tokens")
         res["kernel"] = block_vs_twin(torch, model, vit_cfg, x0, 13)
+        res["attention_b128"] = attention_alone(torch, model, vit_cfg, x0, 13)
         del x0, crops
 
         # (b) A request at batch 16, as phase 3.
@@ -3337,6 +3409,7 @@ def phase_dinov3(torch, device, opts=None, batch=DINOV3_BATCH):
             f"{v['bound_ms']:.4f} ({v['bound_by']})"
             + ("" if v["share"] is None else f", {100 * v['share']:.1f}%")
             for k, v in res["pieces"].items()))
+        res["attention_b32"] = attention_alone(torch, model, vit_cfg, x0, 19, batch=batch)
         del x0, y, y_plain
 
         # (e) Launches from zero over one batch of the cell's step.

@@ -50,16 +50,44 @@
 //   rounding point needs, 474 MB at ViT-G with batch 16). At ViT-G (M =
 //   14,480, H = 4,096, K = 1,536) the product is 364 GFLOP: tensor-core
 //   bound (0.37 ms at 989 TFLOP/s).
-// - Attention: one block per (128-query tile, head, image), 8 warps of 16
-//   queries (128-query tiles halve the K/V re-reads from L2 of 64-query
-//   ones; the time moved by ~4%), mma.sync m16n8k16 with the logits S and
-//   the weights P in registers: each 16 x 16 accumulator of S is rounded
-//   to bf16 P in registers and fed back as the A fragment of the value
-//   product, so no logit tile touches shared memory. K and V stream in 64-key tiles
-//   through a cp.async double buffer straight from the [B, T, 3D] qkv
-//   buffer; q's fragments load once from it. "capped" is one pass over the
-//   keys (no max, no rescaling); "column" a first pass for the row max and
-//   a second for the weights. exp2 comes from the SFU (ex2.approx).
+// - Attention: persistent and warp-specialised, one block a SM walking
+//   work tiles of (query tile, head, image). A producer warpgroup (24-32
+//   registers by setmaxnreg) has one thread issue every TMA load from 3-D
+//   tensor maps over [B, T, 3D] (rows past T read as zero, never as the
+//   next image's): each tile's Q once, then its K and V tiles through two
+//   rings of mbarrier-completed slots, released apart (K once its logits
+//   are done, V once its value product is). The rings run on from tile to
+//   tile, and Q's buffer is released before a tile's last value product,
+//   so the next tile's first K and its Q load under that product and the
+//   stores. Each consumer warpgroup owns 64 query rows. S = Q K^T is wgmma
+//   m64nBNk16 with both operands in 128-byte swizzled shared memory (K
+//   K-major as it lies in the buffer; heads of 128 as two 64-column boxes);
+//   S stays in registers, each pair of p is rounded to bf16 and packed
+//   straight into the A fragment of O += P V, wgmma m64nHDk16 with A from
+//   registers and V as the transposed (MN-major) B: no copy of V and no
+//   logit touches shared memory. Within a warpgroup the logits of tile j
+//   are issued with the value product of tile j - 1, so tile j's exp2 runs
+//   while the tensor cores work; the warpgroups of a block interleave
+//   besides (taking turns at the tensor cores by named barriers, as FA3
+//   does, was 6-12% slower here).
+//   Heads of 128: 2 consumer warpgroups (128 query rows, 240 registers),
+//   key tiles of 176, 2 stages (209 KB): the tensor cores bind (S and P V
+//   are 2 x 64 x 176 x 128 x 2 operations a warpgroup and tile against
+//   11,264 exp2, half the SFU's time for them). Heads of 64: 3 consumer
+//   warpgroups (192 rows, 160 registers), key tiles of 128, 3 stages (121
+//   KB): a tile's 8,192 exp2 a warpgroup (16 a clock per SM) take as long as
+//   its two products on the tensor cores, so the SFU binds as much as they
+//   do. Measured on an H100 at the benchmark's shapes, 37-40% of the
+//   tensor-core bound at both head dims; dropping the exp2 takes 12-14% of
+//   the time, dropping P V 32-34%. exp2 stays on the SFU (ex2.approx): a
+//   quarter of it as a polynomial on the FMA pipes was slower at heads of 64.
+//   Ragged ends: the last query tile runs whole, its rows past T never
+//   stored; a last key tile of at most 16 (heads of 64) or 32 keys (heads
+//   of 128) runs as a narrow wgmma (N = 16 or 32), and keys past seq_len
+//   are masked to -inf. At T = 905 the products spent on padding are 6.5%
+//   at heads of 64 (960 query rows x 912 keys) and 12.3% at heads of 128
+//   (1,024 x 912); at T = 901, 7.3% at heads of 64 (the mma.sync design
+//   this replaced: 16.7% and 17.4%).
 // - RoPE (DINOv3's axial 2-D rotary positions, the TPU kernel has none):
 //   at head dim 128 a 128-wide N tile of q or k is exactly one head, and
 //   head columns c and c + 64, which the rotation pairs, sit in one thread
@@ -89,6 +117,8 @@
 //    evaluated in bf16 (ls * y rounded, then the sum rounded).
 // Tokens are not padded: rows at or past `tokens` are never touched, and
 // keys at or past `seq_len` are masked out of the softmax.
+#include <climits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -436,162 +466,352 @@ __global__ void __launch_bounds__(G_THREADS, 2)
 
 // ---------------------------------------------------------------------------
 // Attention over the qkv buffer [B, T, 3D] (q pre-scaled by log2(e)/sqrt(hd)).
-// One block per (128-query tile, head, image); 8 warps, 16 query rows each.
-// Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of every
-// accumulator fragment, columns 2t and 2t + 1. Heads of HD = 64 or 128: at
-// 128 a warp's output rows take 64 f32 registers a lane and the K and V
-// double buffers 68 KB, so one block a SM, its buffers in dynamic shared
-// memory (HD = 64 keeps two blocks a SM and its static 36 KB).
+// Persistent: one block a SM (never more than the tiles) walks the work
+// tiles of (BM query rows, head, image) in a fixed stride. Warpgroup 0 is the
+// producer: one thread issues every TMA load, each tile's first K tile, its
+// Q (once the last tile's Q is released), then its K and V tiles of BN keys
+// into two rings of STAGES slots (K and V released separately: a K slot is
+// free once its logits are done, a V slot once its value product is). The
+// other WGS warpgroups are consumers, 64 query rows each, with the
+// registers setmaxnreg moves from the producer.
+//
+// A consumer, per key tile j: S = Q K_j^T by wgmma m64nBNk16 with both
+// operands in shared memory (K K-major as it lies in the buffer); masks keys
+// at or past seq_len; p as the contract says, each pair rounded to bf16 and
+// packed straight into the A fragment of the value product; O += P V_j by
+// wgmma m64nHDk16 with A from registers and V as the transposed (MN-major)
+// B operand. The tiles overlap within the warpgroup: the logits of tile j
+// and the value product of tile j - 1 are issued together, and the exp2 of
+// tile j runs while the tensor cores compute P_{j-1} V_{j-1}; the
+// warpgroups of a block interleave on top of that. Q is released after a
+// work tile's last logits, before its last value product and its stores.
+// "column" runs a first pass of logits alone for the row max.
 // ---------------------------------------------------------------------------
-constexpr int AQ = 128, AK = 64, ATHREADS = 256;
+// Tiles by head dim. Heads of 128: 2 consumer warpgroups (128 query rows,
+// 240 registers: S 88, P 44 and O 64 live at once), keys in tiles of 176,
+// two stages of K and of V (Q 32 KB + 176 KB). Heads of 64: 3 consumer
+// warpgroups (192 rows, 160 registers: S 64, P 32, O 32), keys in tiles of
+// 128, three stages (Q 24 KB + 96 KB). A last key tile of at most TN keys
+// runs as a narrow one (wgmma N = TN).
+template <int HD>
+struct AttnShape;
+template <>
+struct AttnShape<64> {
+  static constexpr int WGS = 3, BN = 128, TN = 16, STAGES = 3, PRODUCER_REGS = 32,
+                       CONSUMER_REGS = 160;
+};
+template <>
+struct AttnShape<128> {
+  static constexpr int WGS = 2, BN = 176, TN = 32, STAGES = 2, PRODUCER_REGS = 24,
+                       CONSUMER_REGS = 240;
+};
 
 template <int HD>
-constexpr int ALD = HD + 8;  // bf16 a row of a K or V tile: conflict-free ldmatrix
-template <int HD>
-constexpr int A_TILE = AK * ALD<HD>;
-template <int HD>
-constexpr size_t A_DYN_SMEM = HD == 64 ? 0 : 4 * A_TILE<HD> * sizeof(bf16);
+struct Attn : AttnShape<HD> {
+  static constexpr int BM = 64 * AttnShape<HD>::WGS;  // query rows a block
+  static constexpr int THREADS = 128 * (AttnShape<HD>::WGS + 1);
+  static constexpr int HALVES = HD / 64;  // 64-column boxes a head: one 128-byte swizzle row each
+  static constexpr int Q_BYTES = HALVES * BM * 128;
+  static constexpr int TILE_BYTES = HALVES * AttnShape<HD>::BN * 128;  // one K or V tile
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * AttnShape<HD>::STAGES * TILE_BYTES +
+      (1 + 4 * AttnShape<HD>::STAGES) * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "shared memory of one block");
+  static_assert(128 * (AttnShape<HD>::PRODUCER_REGS +
+                       AttnShape<HD>::WGS * AttnShape<HD>::CONSUMER_REGS) <=
+                    65536 / THREADS / 8 * 8 * THREADS,
+                "setmaxnreg moves registers within the block's launch allocation");
+};
 
-// Rows [r0, r0 + 64) of one head's HD columns (row stride rs elements) by
-// cp.async; rows at or past `limit` are zero.
-template <int HD>
-__device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* __restrict__ src, size_t rs,
-                                               int r0, int limit) {
-  for (int i = threadIdx.x; i < AK * (HD / 8); i += ATHREADS) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const bool ok = r0 + r < limit;
-    fp::cp_async16(dst + r * ALD<HD> + c, ok ? src + static_cast<size_t>(r0 + r) * rs + c : src, ok);
+// A slot of a ring and the parity of its current phase.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
+};
+
+// S [64 x N] = Q K^T of one warpgroup over the first N keys of a K tile of
+// BN rows, issued and committed: dq the warpgroup's Q rows in column half 0
+// (half c lies c * BM * 128 bytes on), dk the K tile's (half c c * BN * 128
+// bytes on).
+template <int HD, int BM, int BN, int N>
+__device__ __forceinline__ void issue_logits(float* s, uint64_t dq, uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk / 4, k = 2 * (kk % 4);  // 32 bytes a step within the 128-byte row
+    fp::wgmma_ss_bf16<N>(s, dq + c * (BM * 128 >> 4) + k, dk + c * (BN * 128 >> 4) + k, kk > 0);
+  }
+  fp::wgmma_commit();
+}
+
+// O [64 x HD] += P V of one warpgroup over N keys, issued and committed: p
+// the packed bf16 weights (p[4kk .. 4kk + 3] the A fragment of keys 16kk ..
+// 16kk + 15), dv the V tile as a transposed B (16 keys = 2048 bytes).
+template <int HD, int N>
+__device__ __forceinline__ void issue_values(float* o, const uint32_t* p, uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) fp::wgmma_rs_bf16_tb<HD>(o, p + 4 * kk, dv + 128 * kk, 1);
+  fp::wgmma_commit();
+}
+
+// Logits of keys at or past seq_len to -inf. s[4j + 2h + e] is row g + 8h,
+// key k0 + 8j + 2t + e (the wgmma accumulator layout).
+template <int N>
+__device__ __forceinline__ void mask_tile(float* s, int k0, int t, int seq_len) {
+  if (k0 + N <= seq_len) return;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= seq_len) s[i] = -INFINITY;
+}
+
+// The weights of one tile: p from the logits as the contract says, rounded
+// to bf16 in pairs and packed (pk[q] from s[2q], s[2q + 1]: the A fragment
+// order), and the sums l of the rounded weights of rows g and g + 8.
+template <int N, bool CAPPED>
+__device__ __forceinline__ void tile_weights(const float* s, uint32_t* pk, float* l, const float* m) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const int h = q % 2;
+    float p0, p1;
+    if (CAPPED) {
+      p0 = fminf(fp::ex2(s[2 * q]), 1e30f);
+      p1 = fminf(fp::ex2(s[2 * q + 1]), 1e30f);
+    } else {
+      p0 = fp::ex2(__fsub_rn(s[2 * q], m[h]));
+      p1 = fp::ex2(__fsub_rn(s[2 * q + 1], m[h]));
+    }
+    pk[q] = fp::pack_bf16(p0, p1);
+    const float2 pr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk[q]));
+    l[h] += pr.x + pr.y;
   }
 }
 
+// One consumer warpgroup's walk over the key tiles: its rings' positions,
+// its row statistics and the operations of a tile.
 template <int HD, bool CAPPED>
-__global__ void __launch_bounds__(ATHREADS, HD == 64 ? 2 : 1)
-    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int seq_len,
-                     int D) {
-  constexpr int LD = ALD<HD>, TILE = A_TILE<HD>;
-  bf16* Ks;  // [2][TILE]
-  bf16* Vs;  // [2][TILE]
-  if constexpr (HD == 64) {
-    __shared__ __align__(128) bf16 Ks64[2][TILE];
-    __shared__ __align__(128) bf16 Vs64[2][TILE];
-    Ks = &Ks64[0][0];
-    Vs = &Vs64[0][0];
-  } else {
-    extern __shared__ unsigned char smem_raw[];
-    Ks = reinterpret_cast<bf16*>(smem_raw);
-    Vs = Ks + 2 * TILE;
-  }
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const size_t rs = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * T * rs + h * HD;
-  const int ntiles = (seq_len + AK - 1) / AK;
-  const int first_v = CAPPED ? 0 : ntiles;  // the first step of the value pass
-  const int steps = first_v + ntiles;
-
-  // Step u loads K tile u (pass 1) or K and V tile u - first_v into buffer u % 2.
-  auto issue = [&](int u) {
-    if (u < steps) {
-      const int tile = u < first_v ? u : u - first_v;
-      load_head_tile<HD>(Ks + (u % 2) * TILE, base + D, rs, tile * AK, seq_len);
-      if (u >= first_v) load_head_tile<HD>(Vs + (u % 2) * TILE, base + 2 * D, rs, tile * AK, seq_len);
-    }
-    fp::cp_async_commit();
-  };
-  issue(0);
-  issue(1);
-
-  // This warp's 16 query rows as A fragments, straight from the qkv buffer:
-  // a[0] row g, k 2t; a[1] row g + 8; a[2] row g, k 8 + 2t; a[3] row g + 8.
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 16 * warp + g + 8 * (i % 2);
-      qf[kk][i] = row < T ? *reinterpret_cast<const uint32_t*>(
-                                base + static_cast<size_t>(row) * rs + 16 * kk + 8 * (i / 2) + 2 * t)
-                          : 0u;
-    }
-
+struct Consumer {
+  using A = Attn<HD>;
+  unsigned char *Ks, *Vs;
+  uint64_t *k_full, *k_empty, *v_full, *v_empty;
+  uint64_t dq;
+  int lane, t, seq_len;
+  Ring kr, vr;
   float m[2] = {-INFINITY, -INFINITY};  // column: row max of the logits (base 2)
-  float l[2] = {0.f, 0.f};              // per-thread part of the sum of bf16(p)
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float l[2] = {0.f, 0.f};              // this thread's part of the sum of bf16(p)
 
-  for (int u = 0; u < steps; ++u) {
-    fp::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kb = Ks + (u % 2) * TILE;
-    if (!CAPPED && u < first_v) {  // pass 1: the row max
-      float s[8][4];
+  __device__ __forceinline__ uint64_t k_desc() {
+    fp::mbar_wait(&k_full[kr.stage], kr.phase);
+    return fp::wgmma_desc_sw128(Ks + kr.stage * A::TILE_BYTES);
+  }
+  __device__ __forceinline__ uint64_t v_desc() {
+    fp::mbar_wait(&v_full[vr.stage], vr.phase);
+    return fp::wgmma_desc_sw128_mn(Vs + vr.stage * A::TILE_BYTES, A::BN * 128);
+  }
+  __device__ __forceinline__ void release(uint64_t* empty, Ring& r) {
+    if (lane == 0) fp::mbar_arrive(&empty[r.stage]);  // this warp's products are done with it
+    r.next(A::STAGES);
+  }
+  // "column"'s first pass: the row max over the next K tile (keys from k0).
+  __device__ __forceinline__ void row_max(int k0) {
+    float s[A::BN / 2];
+    const uint64_t dk = k_desc();
+    fp::wgmma_fence();
+    issue_logits<HD, A::BM, A::BN, A::BN>(s, dq, dk);
+    fp::wgmma_wait<0>();
+    release(k_empty, kr);
+    mask_tile<A::BN>(s, k0, t, seq_len);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) fp::logits_pair<HD / 16, LD>(s + 2 * np, qf, Kb, np, lane);
-      fp::mask_keys<8>(s, u * AK, t, seq_len);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) m[e / 2] = fmaxf(m[e / 2], s[n][e]);
-      if (u == first_v - 1) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
-          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+    for (int i = 0; i < A::BN / 2; ++i) m[(i / 2) % 2] = fmaxf(m[(i / 2) % 2], s[i]);
+  }
+  // The weights pk of the next K tile's first N keys (from k0).
+  template <int N>
+  __device__ __forceinline__ void first(uint32_t* pk, int k0) {
+    float s[N / 2];
+    const uint64_t dk = k_desc();
+    fp::wgmma_fence();
+    issue_logits<HD, A::BM, A::BN, N>(s, dq, dk);
+    fp::wgmma_wait<0>();
+    release(k_empty, kr);
+    mask_tile<N>(s, k0, t, seq_len);
+    tile_weights<N, CAPPED>(s, pk, l, m);
+  }
+  // The weights pk of the next K tile's first N keys (from k0), while the
+  // tensor cores add P V of the previous tile (p, its first NP keys) to o.
+  template <int N, int NP>
+  __device__ __forceinline__ void step(float* o, const uint32_t* p, uint32_t* pk, int k0) {
+    float s[N / 2];
+    const uint64_t dk = k_desc();
+    const uint64_t dv = v_desc();
+    fp::wgmma_fence();
+    issue_logits<HD, A::BM, A::BN, N>(s, dq, dk);
+    issue_values<HD, NP>(o, p, dv);
+    fp::wgmma_wait<1>();  // the logits are done
+    release(k_empty, kr);
+    mask_tile<N>(s, k0, t, seq_len);
+    tile_weights<N, CAPPED>(s, pk, l, m);
+    fp::wgmma_wait<0>();  // the value product is done with p and V
+    release(v_empty, vr);
+  }
+  // P V of the last tile (p, its first NP keys) added to o.
+  template <int NP>
+  __device__ __forceinline__ void last(float* o, const uint32_t* p) {
+    const uint64_t dv = v_desc();
+    fp::wgmma_fence();
+    issue_values<HD, NP>(o, p, dv);
+    fp::wgmma_wait<0>();
+    release(v_empty, vr);
+  }
+};
+
+template <int HD, bool CAPPED>
+__global__ void __launch_bounds__(Attn<HD>::THREADS, 1)
+    attention_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_kv,
+                     bf16* __restrict__ out, int T, int seq_len, int D, int heads, int tiles) {
+  using A = Attn<HD>;
+  constexpr int BM = A::BM, BN = A::BN, TN = A::TN, STAGES = A::STAGES, WGS = A::WGS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = Qs + A::Q_BYTES;             // [STAGES][TILE_BYTES]
+  unsigned char* Vs = Ks + STAGES * A::TILE_BYTES;  // [STAGES][TILE_BYTES]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * A::TILE_BYTES);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qtiles = (T + BM - 1) / BM, ntiles = (seq_len + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    fp::mbar_init(q_full, 1);
+    fp::mbar_init(q_empty, 4 * WGS);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      fp::mbar_init(&k_full[s], 1);
+      fp::mbar_init(&v_full[s], 1);
+      fp::mbar_init(&k_empty[s], 4 * WGS);
+      fp::mbar_init(&v_empty[s], 4 * WGS);
+    }
+    fp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Work tile w: query tile w % qtiles of head (w / qtiles) % heads of image
+  // w / (qtiles * heads); block i takes tiles i, i + gridDim.x, ...
+  if (warp < 4) {  // the producer warpgroup
+    fp::setmaxnreg_dec<A::PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      Ring kr, vr;
+      uint32_t qphase = 0;
+      for (int w = blockIdx.x; w < tiles; w += gridDim.x, qphase ^= 1) {
+        const int q0 = (w % qtiles) * BM, head = (w / qtiles) % heads, b = w / (qtiles * heads);
+        auto load = [&](unsigned char* ring, uint64_t* full, uint64_t* empty, Ring& r, int col,
+                        int tile) {
+          fp::mbar_wait(&empty[r.stage], r.phase ^ 1);
+          fp::mbar_expect_tx(&full[r.stage], A::TILE_BYTES);
+          unsigned char* dst = ring + r.stage * A::TILE_BYTES;
+          for (int c = 0; c < A::HALVES; ++c)
+            fp::tma_load_3d(dst + c * BN * 128, &tm_kv, &full[r.stage], col + 64 * c, tile * BN, b);
+          r.next(STAGES);
+        };
+        const int kcol = D + head * HD, vcol = 2 * D + head * HD;
+        load(Ks, k_full, k_empty, kr, kcol, 0);  // the tile's first K, ahead of its Q
+        // Q: 64-row boxes, once the consumers are done with the last tile's;
+        // a box that starts past T is not loaded (its rows are never
+        // stored). Rows past T inside a box read as zero.
+        fp::mbar_wait(q_empty, qphase ^ 1);
+        int boxes = 0;
+        for (int r = 0; r < WGS; ++r) boxes += q0 + 64 * r < T;
+        fp::mbar_expect_tx(q_full, boxes * A::HALVES * 64 * 128);
+        for (int c = 0; c < A::HALVES; ++c)
+          for (int r = 0; r < WGS; ++r)
+            if (q0 + 64 * r < T)
+              fp::tma_load_3d(Qs + c * BM * 128 + r * 8192, &tm_q, q_full, head * HD + 64 * c,
+                              q0 + 64 * r, b);
+        if (!CAPPED) {  // the first pass's K tiles, then K and V again
+          for (int j = 1; j < ntiles; ++j) load(Ks, k_full, k_empty, kr, kcol, j);
+          load(Ks, k_full, k_empty, kr, kcol, 0);
         }
-      }
-    } else {  // the weights, 16 keys at a time: S, then P = bf16(p) as A fragments, O += P V
-      const bf16* Vb = Vs + (u % 2) * TILE;
-      const int k0 = (u - first_v) * AK;
-#pragma unroll
-      for (int j = 0; j < AK / 16; ++j) {
-        float s[2][4];
-        fp::logits_pair<HD / 16, LD>(s, qf, Kb, j, lane);
-        fp::mask_keys<2>(s, k0 + 16 * j, t, seq_len);
-        uint32_t a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {  // A fragment i: key block i / 2, row g + 8 (i % 2)
-          const float* sv = s[i / 2] + 2 * (i % 2);
-          const int hh = i % 2;
-          float p0, p1;
-          if (CAPPED) {
-            p0 = fminf(fp::ex2(sv[0]), 1e30f);
-            p1 = fminf(fp::ex2(sv[1]), 1e30f);
-          } else {
-            p0 = fp::ex2(__fsub_rn(sv[0], m[hh]));
-            p1 = fp::ex2(__fsub_rn(sv[1], m[hh]));
-          }
-          a[i] = fp::pack_bf16(p0, p1);
-          const float2 pr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[i]));
-          l[hh] += pr.x + pr.y;
-        }
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {  // dims 16dp .. 16dp + 15
-          uint32_t bv[4];
-          fp::ldmatrix_x4_trans(bv, Vb + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 16 * dp +
-                                        8 * (lane / 16));
-          fp::mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-          fp::mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
+        load(Vs, v_full, v_empty, vr, vcol, 0);
+        for (int j = 1; j < ntiles; ++j) {
+          load(Ks, k_full, k_empty, kr, kcol, j);
+          load(Vs, v_full, v_empty, vr, vcol, j);
         }
       }
     }
-    __syncthreads();  // buffer u % 2 consumed
-    issue(u + 2);
-  }
-  fp::cp_async_wait<0>();
+  } else {  // the consumers
+    fp::setmaxnreg_inc<A::CONSUMER_REGS>();
+    const int wg = warp / 4 - 1, wl = warp % 4, g = lane / 4, t = lane % 4;
+    Consumer<HD, CAPPED> c{Ks, Vs, k_full, k_empty, v_full, v_empty,
+                           fp::wgmma_desc_sw128(Qs + wg * 8192), lane, t, seq_len};
+    // Tiles of BN keys, then, if the last holds at most TN keys, a narrow one.
+    const int full = seq_len - (ntiles - 1) * BN <= TN ? ntiles - 1 : ntiles;
+    uint32_t qphase = 0;
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x, qphase ^= 1) {
+      const int q0 = (w % qtiles) * BM, head = (w / qtiles) % heads, b = w / (qtiles * heads);
+      c.m[0] = c.m[1] = -INFINITY;
+      c.l[0] = c.l[1] = 0.f;
+      // Q's buffer is free for the next tile once the last logits are done,
+      // before the last value product and the stores.
+      auto release_q = [&]() {
+        if (lane == 0) fp::mbar_arrive(q_empty);
+      };
+      fp::mbar_wait(q_full, qphase);
+      if (!CAPPED) {  // pass 1: the row max
+#pragma unroll 1
+        for (int j = 0; j < ntiles; ++j) c.row_max(j * BN);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          c.m[h] = fmaxf(c.m[h], __shfl_xor_sync(0xffffffffu, c.m[h], 1));
+          c.m[h] = fmaxf(c.m[h], __shfl_xor_sync(0xffffffffu, c.m[h], 2));
+        }
+      }
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      if (full == 0) {
+        uint32_t pt[TN / 4];
+        c.template first<TN>(pt, 0);
+        release_q();
+        c.template last<TN>(o, pt);
+      } else {
+        uint32_t p[BN / 4];  // the weights of the tile whose value product is next
+        c.template first<BN>(p, 0);
+#pragma unroll 1
+        for (int j = 1; j < full; ++j) {
+          uint32_t pk[BN / 4];
+          c.template step<BN, BN>(o, p, pk, j * BN);
+#pragma unroll
+          for (int q = 0; q < BN / 4; ++q) p[q] = pk[q];
+        }
+        if (full < ntiles) {
+          uint32_t pt[TN / 4];
+          c.template step<TN, BN>(o, p, pt, full * BN);
+          release_q();
+          c.template last<TN>(o, pt);
+        } else {
+          release_q();
+          c.template last<BN>(o, p);
+        }
+      }
 
+      // o[4j + 2h + e] is row g + 8h, column 8j + 2t + e.
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-    const int row = q0 + 16 * warp + g + 8 * hh;
-    if (row >= T) continue;
-    bf16* dst = out + (static_cast<size_t>(b) * T + row) * D + h * HD;
+      for (int h = 0; h < 2; ++h) {
+        float l = c.l[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        const int row = q0 + 64 * wg + 16 * wl + g + 8 * h;
+        if (row >= T) continue;
+        bf16* dst = out + (static_cast<size_t>(b) * T + row) * D + head * HD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n + 2 * t) =
-          fp::pack_bf16(__fmul_rn(o[n][2 * hh], inv), __fmul_rn(o[n][2 * hh + 1], inv));
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              fp::pack_bf16(__fmul_rn(o[4 * j + 2 * h], inv), __fmul_rn(o[4 * j + 2 * h + 1], inv));
+      }
+    }
   }
 }
 
@@ -642,14 +862,31 @@ int launch_layernorm(const bf16* x, const bf16* w, const bf16* b, bf16* out, int
 template <int HD, bool CAPPED>
 int launch_attention(const bf16* qkv, bf16* out, int batch, int T, int seq_len, int D, int heads,
                      cudaStream_t stream) {
-  if constexpr (A_DYN_SMEM<HD> > 0) {  // once per process and instantiation: past 48 KB
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(attention_kernel<HD, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(A_DYN_SMEM<HD>));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
-  const dim3 grid((T + AQ - 1) / AQ, heads, batch);
-  attention_kernel<HD, CAPPED><<<grid, ATHREADS, A_DYN_SMEM<HD>, stream>>>(qkv, out, T, seq_len, D);
+  using A = Attn<HD>;
+  // Once per process and instantiation: shared memory past 48 KB.
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_kernel<HD, CAPPED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(A::SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // [batch, T, 3D] as 3-D tensors, so that rows past T read as zero and never
+  // as the next image's: Q in boxes of 64 rows, K and V of BN rows.
+  CUtensorMap tm_q, tm_kv;
+  int rc = fp::encode_tensor_map_3d(&tm_q, qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, batch, T,
+                                    3 * D, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  rc = fp::encode_tensor_map_3d(&tm_kv, qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, batch, T, 3 * D,
+                                A::BN, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  // Persistent: one block a SM (at most one a tile) walks the tiles.
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>((T + A::BM - 1) / A::BM) * heads * batch;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  attention_kernel<HD, CAPPED><<<grid, A::THREADS, A::SMEM, stream>>>(tm_q, tm_kv, out, T, seq_len, D,
+                                                                      heads, static_cast<int>(tiles));
   return fp::launch_status();
 }
 

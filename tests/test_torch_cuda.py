@@ -212,6 +212,98 @@ def test_vit_block_kernel_at_vitl_width(dev, stabilizer, approx_gelu, tokens):
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) < 1e-2
 
 
+# The attention's tiles (csrc/vit_block.cu, AttnShape): query rows a block
+# and keys a tile by head dim.
+ATTN_TILES = {64: (192, 128), 128: (128, 176)}
+
+
+def _attention_block(gen, head_dim, dev):
+    """Two heads of `head_dim` at width 2 * head_dim, GELU hidden 256."""
+    d = 2 * head_dim
+    p = block_weights(gen, d, 256, dev)
+    p["qkv_weight"] = p["qkv_weight"] * (128 / d) ** 0.5
+    return p, d
+
+
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("below", [False, True])
+@pytest.mark.parametrize("tokens", [129, 144, 145, 177, 193, 901, 905])
+def test_vit_block_kernel_attention_tails(dev, stabilizer, head_dim, below, tokens):
+    """Token counts that leave one query row in the last query tile (129 at
+    heads of 128, 193 at heads of 64), one key in the last key tile (177 at
+    heads of 128, 129 at heads of 64), a last key tile just within and just
+    past the narrow tail's 16 keys at heads of 64 (144, 145), and the
+    benchmark's 901 and 905; `below` puts seq_len at the last count under T
+    with one key in its last tile (down to seq_len 1). Relative L2 <= 1e-2
+    on the output and the residual branches below seq_len."""
+    gen = torch.Generator().manual_seed(tokens + head_dim)
+    p, d = _attention_block(gen, head_dim, dev)
+    bn = ATTN_TILES[head_dim][1]
+    seq_len = (tokens - 2) // bn * bn + 1 if below else tokens
+    x = torch.randn(2, tokens, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(seq_len=seq_len, num_heads=2, head_dim=head_dim, approx_gelu=True,
+              softmax_stabilizer=stabilizer)
+    before = fused_vit_block.launches
+    got = fused_vit_block(x, p, **kw)[:, :seq_len].float()
+    ref = fused_vit_block_plain(x, p, **kw)[:, :seq_len].float()
+    assert fused_vit_block.launches == before + 1
+    assert max(_branch_errors(x[:, :seq_len], got, ref)) < 1e-2
+
+
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_vit_block_kernel_keeps_images_apart(dev, stabilizer, head_dim):
+    """Three images of 905 tokens (the last query and key tiles of an image
+    run past T): new tokens in image 1 leave images 0 and 2 bit for bit
+    unchanged, so no key, value or query row crosses an image."""
+    gen = torch.Generator().manual_seed(21)
+    p, d = _attention_block(gen, head_dim, dev)
+    x = torch.randn(3, 905, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(num_heads=2, head_dim=head_dim, approx_gelu=True, softmax_stabilizer=stabilizer)
+    first = fused_vit_block(x, p, **kw)
+    x[1] = torch.randn(905, d, generator=gen).to(dev, torch.bfloat16) * 4
+    second = fused_vit_block(x, p, **kw)
+    assert not torch.equal(first[1], second[1])
+    for i in (0, 2):
+        assert torch.equal(first[i].view(torch.int16), second[i].view(torch.int16)), i
+
+
+@pytest.mark.parametrize("stabilizer", ["capped", "column"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_vit_block_kernel_ignores_keys_past_seq_len(dev, stabilizer, head_dim):
+    """seq_len 897 of 905 tokens: the rows at or past seq_len filled with
+    spikes of 3e4 (after LN1 one large entry a row, so large keys and values
+    there) leave the output below seq_len bit for bit unchanged: those keys
+    get p = 0 exactly."""
+    gen = torch.Generator().manual_seed(22)
+    p, d = _attention_block(gen, head_dim, dev)
+    seq_len = 897
+    x = torch.randn(2, 905, d, generator=gen).to(dev, torch.bfloat16)
+    kw = dict(seq_len=seq_len, num_heads=2, head_dim=head_dim, approx_gelu=True,
+              softmax_stabilizer=stabilizer)
+    first = fused_vit_block(x, p, **kw)
+    spikes = torch.zeros(2, 905 - seq_len, d)
+    cols = torch.randint(0, d, (2, 905 - seq_len, 1), generator=gen)
+    spikes.scatter_(2, cols, 3e4)
+    x[:, seq_len:] = spikes.to(dev, torch.bfloat16)
+    second = fused_vit_block(x, p, **kw)
+    assert not torch.equal(first[:, seq_len:], second[:, seq_len:])
+    assert torch.equal(first[:, :seq_len].view(torch.int16), second[:, :seq_len].view(torch.int16))
+
+
+def test_vit_block_kernel_refused_launch_raises(dev):
+    """65,536 images, past fp_vit_block's limit of 65,535: it refuses the
+    shape before any launch and returns the error, and the wrapper raises on
+    the status and leaves its counters as they were."""
+    p, d = _attention_block(torch.Generator().manual_seed(23), 64, dev)
+    x = torch.zeros(65536, 1, d, device=dev, dtype=torch.bfloat16)
+    before = fused_vit_block.launches, fused_vit_block.rope_launches
+    with pytest.raises(RuntimeError, match="fp_vit_block failed with cudaError"):
+        fused_vit_block(x, p, num_heads=2, head_dim=64, softmax_stabilizer="capped")
+    assert (fused_vit_block.launches, fused_vit_block.rope_launches) == before
+
+
 def test_engine_estimate_makes_no_host_sync_before_its_fetch(dev):
     """PoseEngine at configs/infer/lmo.json's switches (bf16, fused block,
     tanh GELU, capped softmax, approximate top-k) with one LM-O-scale
